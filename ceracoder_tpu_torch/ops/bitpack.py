@@ -10,8 +10,9 @@ chunk's first word sw[c]. What remains is the merge
 at data-dependent offsets — a scatter. On the TPU this was the Pallas
 kernel ceracoder_tpu/ops/bitpack.py:merge_windows (production used its
 jnp twin `tree_merge`). Here it is the CUDA kernel
-csrc/merge_windows.cu, with `merge_windows_ref` as its plain PyTorch
-version. Both are an exact scatter-add mod 2^32 that drops words at or
+csrc/merge_windows.cu (one thread-block cluster per row, launch
+geometry from `merge_geometry`), with `merge_windows_ref` as its plain
+PyTorch version. Both are an exact scatter-add mod 2^32 that drops words at or
 past capw_pad; on every row whose words reach the bitstream (no chunk
 wider than WIN-1 words, total within capacity) that equals
 `tree_merge`. Neither wraps words around a 128-lane window as the
@@ -26,12 +27,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
 WIN = 64                    # partial window width (words)
 MAX_SMEM_BYTES = 232448     # dynamic shared memory one CTA can use (H100)
 M32 = 0xFFFFFFFF
+CLUSTER = 8                 # CTAs per row: the portable cluster size
+STAGE_CHUNKS = 32           # windows one bulk copy brings in (8 KB)
 
 
 def u32_to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -62,7 +66,34 @@ def merge_windows_ref(sw: torch.Tensor, partials: torch.Tensor,
     return u32_to_i32(buf[:, :capw_pad] & M32)
 
 
-def _check(sw: torch.Tensor, partials: torch.Tensor, capw_pad: int) -> None:
+class MergeGeometry(NamedTuple):
+    """Launch geometry of the K1 kernel for one (rows, nch, capw_pad)."""
+    cluster: int         # CTAs per row, one thread-block cluster
+    grid: int            # CTAs in all (rows * cluster)
+    seg: int             # output words each CTA owns (a multiple of 4)
+    chunks_per_cta: int  # chunks each CTA takes
+    stage_chunks: int    # chunks one bulk copy brings in
+    smem_bytes: int      # dynamic shared memory per CTA
+
+
+def merge_geometry(rows: int, nch: int, capw_pad: int) -> MergeGeometry:
+    """CTA j of a row's cluster owns output words [j*seg, (j+1)*seg)
+    and takes chunks [j*chunks_per_cta, (j+1)*chunks_per_cta), both
+    clipped at the row's end. Its shared memory holds a slab of
+    stage_chunks partial windows, its segment, an mbarrier (16 bytes
+    reserved) and the starts of its chunks (csrc/merge_windows.cu)."""
+    seg = -(-capw_pad // CLUSTER)
+    seg = -(-seg // 4) * 4
+    chunks_per_cta = -(-nch // CLUSTER)
+    stage_chunks = min(chunks_per_cta, STAGE_CHUNKS)
+    smem = stage_chunks * WIN * 4 + seg * 4 + 16 + chunks_per_cta * 4
+    return MergeGeometry(CLUSTER, rows * CLUSTER, seg, chunks_per_cta,
+                         stage_chunks, smem)
+
+
+def _check(sw: torch.Tensor, partials: torch.Tensor,
+           capw_pad: int) -> MergeGeometry:
+    """Raise on what the kernel does not take; return its geometry."""
     if sw.dtype != torch.int32 or partials.dtype != torch.int32:
         raise TypeError("merge_windows takes int32 sw and partials, got "
                         f"{sw.dtype} and {partials.dtype}")
@@ -74,9 +105,17 @@ def _check(sw: torch.Tensor, partials: torch.Tensor, capw_pad: int) -> None:
         raise ValueError("sw and partials lie on different devices")
     if not (sw.is_contiguous() and partials.is_contiguous()):
         raise ValueError("merge_windows needs contiguous inputs")
-    if capw_pad <= 0 or capw_pad * 4 > MAX_SMEM_BYTES:
-        raise ValueError(f"capw_pad={capw_pad} words does not fit one "
-                         f"CTA's shared memory ({MAX_SMEM_BYTES} bytes)")
+    if capw_pad <= 0:
+        raise ValueError(f"capw_pad={capw_pad}: need at least one word")
+    geo = merge_geometry(*sw.shape, capw_pad)
+    if geo.smem_bytes > MAX_SMEM_BYTES:
+        raise ValueError(f"capw_pad={capw_pad}, nch={sw.shape[1]} needs "
+                         f"{geo.smem_bytes} bytes of shared memory per CTA; "
+                         f"one CTA has {MAX_SMEM_BYTES}")
+    # the kernel bulk-copies whole windows from partials
+    if partials.data_ptr() % 16:
+        raise ValueError("merge_windows needs partials 16-byte aligned")
+    return geo
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,8 +124,8 @@ def _launcher():
     from ceracoder_tpu_torch.utils.cuda_build import load_library
 
     fn = load_library("merge_windows").merge_windows_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
@@ -99,7 +138,7 @@ def merge_windows(sw: torch.Tensor, partials: torch.Tensor,
     on the current stream (or raises); on a CPU tensor it runs
     `merge_windows_ref`. `merge_windows.launches` counts kernel
     launches."""
-    _check(sw, partials, capw_pad)
+    geo = _check(sw, partials, capw_pad)
     if sw.device.type == "cpu":
         return merge_windows_ref(sw, partials, capw_pad)
     if sw.device.type != "cuda":
@@ -112,7 +151,9 @@ def merge_windows(sw: torch.Tensor, partials: torch.Tensor,
     with torch.cuda.device(sw.device):
         stream = torch.cuda.current_stream(sw.device).cuda_stream
         err = launch(sw.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                     r, nch, capw_pad, stream)
+                     r, nch, capw_pad, geo.cluster, geo.seg,
+                     geo.chunks_per_cta, geo.stage_chunks, geo.smem_bytes,
+                     stream)
     if err != 0:
         raise RuntimeError(f"merge_windows kernel launch failed: CUDA "
                            f"error {err}")

@@ -3,7 +3,8 @@
 Each kernel is one source file ``ceracoder_tpu_torch/csrc/<name>.cu``
 with a plain C entry point. It is compiled with nvcc for ``sm_90a``
 into ``build/`` at the repository root (listed in .gitignore) at first
-use, keyed by the source's content hash, and loaded with ctypes.
+use, keyed by a hash of the nvcc flags, the headers under ``csrc/`` and
+the source (``library_path``), and loaded with ctypes.
 Nothing is built or imported while a module is imported.
 """
 
@@ -34,13 +35,17 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where csrc/<name>.cu is built: named by a hash of everything
+    that shapes the library (the nvcc flags, every csrc/*.cuh header
+    and the source), so a change to any of them builds anew."""
+    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for src in [*sorted(CSRC_DIR.glob("*.cuh")), CSRC_DIR / f"{name}.cu"]:
+        h.update(b"\0" + src.name.encode() + b"\0" + src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_library(name: str) -> tuple[Path, str]:
-    """Compile csrc/<name>.cu unless this exact source is already built.
+    """Compile csrc/<name>.cu unless `library_path(name)` exists.
     Returns (shared library path, compiler output: ptxas register and
     shared-memory report; empty when nothing was compiled)."""
     out = library_path(name)

@@ -11,9 +11,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 2. build: every hand-written kernel from csrc/, one nvcc per source,
    all started together;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   on random inputs and on the real inputs of a 1080p IDR and P frame,
-   bit-equal; timed with CUDA events beside the plain version, a
-   one-call PyTorch yardstick and the memory bound;
+   on random inputs, on edge cases (`merge_edge_cases`) and on the real
+   inputs of a 1080p IDR and P frame, bit-equal; timed (torch.profiler
+   device time over 5 windows, and CUDA events) beside the plain
+   version, one-call PyTorch yardsticks and the memory bound;
 4. main path: H264Encoder(1920, 1088, qp=28, gop=60, cabac=False) on
    DeviceTestPatternSource(1920, 1088, texture=6), 3 runs of 10 frames
    through encode_run_async; kernel launch counts are set to 0 just
@@ -30,11 +31,13 @@ and exits non-zero without CUDA or without the repository beside it.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 # kernel name -> (TPU kernel it replaces, route)
@@ -74,21 +77,49 @@ def time_cuda(fn, iters: int, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int, warmup: int = 5) -> float | None:
-    """Mean device milliseconds of fn(): the CUDA kernel time that
-    torch.profiler records over `iters` calls (None if it records
-    none). Unlike time_cuda, host launch gaps do not count."""
+def device_ms(fn, iters: int, windows: int = 5, warmup: int = 5,
+              max_windows: int = 10) -> dict:
+    """Device milliseconds per call of fn(): the CUDA kernel time that
+    torch.profiler records, in windows of `iters` calls each. Unlike
+    time_cuda, host launch gaps do not count.
+
+    Every window must record the same whole number of kernel events per
+    call. The profiler sometimes loses events (on an H100, one window
+    of 200 calls recorded 199 kernels, another none): a window with
+    fewer events than the most any window recorded, or none, is set
+    aside (`dropped_windows`) and another is taken. The check fails
+    unless `windows` windows agree within `max_windows`, or if no
+    window records a kernel. Returns the median of the agreeing
+    windows, their [min, max] and the kernel events per call."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return total_us / 1e3 / iters if total_us > 0 else None
+    by_count: dict[int, list[float]] = {}
+    for taken in range(1, max_windows + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        by_count.setdefault(len(kernels), []).append(
+            sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters)
+        if len(by_count[max(by_count)]) >= windows:
+            break
+    count = max(by_count)
+    per_call = by_count[count]
+    check(count > 0, f"no profiler window of {iters} calls recorded a "
+          "kernel")
+    check(len(per_call) >= windows and count % iters == 0,
+          f"kernel events per window of {iters} calls: "
+          f"{ {c: len(v) for c, v in by_count.items()} } (count: windows)")
+    return {"ms": statistics.median(per_call),
+            "spread": [min(per_call), max(per_call)],
+            "kernels_per_call": count // iters,
+            "dropped_windows": taken - len(per_call)}
 
 
 def build_kernels(tag: str) -> None:
@@ -127,6 +158,59 @@ def random_merge_case(gen: torch.Generator, rows: int, nch: int,
             capw_pad)
 
 
+def merge_edge_cases(seed: int = 7) -> dict:
+    """K1 edge cases as CPU tensors, name -> (sw, partials, capw_pad),
+    made with numpy from `seed`: fewer chunks than CTAs in a cluster and
+    a chunk count that is no multiple of it, windows across segment
+    boundaries, unsorted starts, all-zero partials, negative starts and
+    starts at or past capw_pad (int32 extremes included), capw_pad 256,
+    16384 and one that is no multiple of 4, and CTAs whose chunks take
+    two bulk copies (ops/bitpack.py:merge_geometry)."""
+    from ceracoder_tpu_torch.ops.bitpack import (
+        CLUSTER, STAGE_CHUNKS, WIN, merge_geometry, u32_to_i32)
+
+    rng = np.random.default_rng(seed)
+
+    def words(rows, nch):           # uint32 words, about half of them 0
+        p = rng.integers(0, 1 << 32, (rows, nch, WIN), dtype=np.uint64)
+        p[rng.random(p.shape) < 0.5] = 0
+        return p
+
+    def starts(rows, nch, capw_pad):
+        return np.sort(rng.integers(0, capw_pad, (rows, nch)), axis=1)
+
+    seg = merge_geometry(1, 1, 1024).seg
+    across = (np.arange(1, CLUSTER)[:, None] * seg
+              - rng.integers(1, WIN, (CLUSTER - 1, 3))).reshape(1, -1)
+    edges = np.array([[-(1 << 31), -WIN - 3, -WIN + 1, -1, 0, 200,
+                       512 - WIN + 2, 511, 512, 600, (1 << 31) - 11,
+                       (1 << 31) - 1]])
+    nch2 = CLUSTER * (STAGE_CHUNKS + 2)
+    cases = {
+        "nch_below_cluster": (starts(3, CLUSTER - 3, 256),
+                              words(3, CLUSTER - 3), 256),
+        "nch_not_multiple_of_cluster": (starts(4, 2 * CLUSTER + 5, 1024),
+                                        words(4, 2 * CLUSTER + 5), 1024),
+        "windows_across_segments": (np.repeat(across, 2, axis=0),
+                                    words(2, across.shape[1]), 1024),
+        "unsorted_starts": (rng.integers(0, 2048, (5, 40)), words(5, 40),
+                            2048),
+        "all_zero_partials": (starts(4, 30, 1024),
+                              np.zeros((4, 30, WIN), np.uint64), 1024),
+        "starts_out_of_range": (np.repeat(edges, 3, axis=0),
+                                words(3, edges.shape[1]), 512),
+        "capw_pad_256": (starts(2, 9, 256), words(2, 9), 256),
+        "capw_pad_16384": (starts(3, 40, 16384), words(3, 40), 16384),
+        "capw_pad_not_multiple_of_4": (starts(3, 20, 1001), words(3, 20),
+                                       1001),
+        "two_bulk_copies_per_cta": (starts(2, nch2, 4096), words(2, nch2),
+                                    4096),
+    }
+    return {name: (torch.as_tensor(sw.astype(np.int32)),
+                   u32_to_i32(torch.as_tensor(p.astype(np.int64))), capw)
+            for name, (sw, p, capw) in cases.items()}
+
+
 def capture_merge_inputs(width: int, height: int, texture: int):
     """sw / partials / capw_pad that the slice hands the merge for
     frame 0 (IDR) and frame 1 (P) of the device source."""
@@ -153,74 +237,113 @@ def capture_merge_inputs(width: int, height: int, texture: int):
     return captured
 
 
+def merge_err(case) -> int:
+    """Largest difference between K1 and its plain version on case."""
+    from ceracoder_tpu_torch.ops.bitpack import (
+        i32_to_u32, merge_windows, merge_windows_ref)
+
+    got = merge_windows(*case)
+    want = merge_windows_ref(*case)
+    torch.cuda.synchronize()
+    return int((i32_to_u32(got) - i32_to_u32(want)).abs().max())
+
+
 def merge_numbers(case, iters: int = 200):
     """Equality and timings of K1 on one input."""
     from ceracoder_tpu_torch.ops.bitpack import (
         WIN, i32_to_u32, merge_windows, merge_windows_ref)
 
     sw, partials, capw_pad = case
-    got = merge_windows(sw, partials, capw_pad)
-    want = merge_windows_ref(sw, partials, capw_pad)
-    torch.cuda.synchronize()
-    err = int((i32_to_u32(got) - i32_to_u32(want)).abs().max())
+    out = {"max_abs_err": merge_err(case)}
     rows, nch = sw.shape
-    # one-call yardstick: a single scatter_add_ with prepared indices
+    # one-call yardsticks: a single scatter_add_ with prepared indices,
+    # on int64 values and on the same int32 bit patterns (which adds
+    # mod 2^32 as K1 does, moving half the bytes)
     idx = (sw.to(torch.int64)[:, :, None]
            + torch.arange(WIN, device=sw.device))
-    idx = torch.where(idx < capw_pad, idx, capw_pad).reshape(rows, -1)
-    src = i32_to_u32(partials).reshape(rows, -1)
-    buf = torch.zeros((rows, capw_pad + 1), dtype=torch.int64,
-                      device=sw.device)
+    idx = torch.where((idx >= 0) & (idx < capw_pad), idx, capw_pad)
+    idx = idx.reshape(rows, -1)
+    src64 = i32_to_u32(partials).reshape(rows, -1)
+    src32 = partials.reshape(rows, -1)
+    buf64 = torch.zeros((rows, capw_pad + 1), dtype=torch.int64,
+                        device=sw.device)
+    buf32 = torch.zeros((rows, capw_pad + 1), dtype=torch.int32,
+                        device=sw.device)
+    buf32.scatter_add_(1, idx, src32)
+    check(torch.equal(buf32[:, :capw_pad],
+                      merge_windows(sw, partials, capw_pad)),
+          "int32 scatter_add_ yardstick differs from K1")
     nbytes = (sw.numel() * 4 + partials.numel() * 4 + rows * capw_pad * 4)
     ops = partials.numel()
     fns = {"ms": lambda: merge_windows(sw, partials, capw_pad),
            "plain_ms": lambda: merge_windows_ref(sw, partials, capw_pad),
-           "library_ms": lambda: buf.scatter_add_(1, idx, src)}
-    out = {"max_abs_err": err}
-    timed_by = set()
+           "library_i64_ms": lambda: buf64.scatter_add_(1, idx, src64),
+           "library_i32_ms": lambda: buf32.scatter_add_(1, idx, src32)}
     for key, fn in fns.items():
-        # device time (profiler) when it is recorded; the CUDA-event
-        # time per call also counts host launch gaps
+        # device time (profiler); the CUDA-event time per call also
+        # counts host launch gaps
         out["event_" + key] = time_cuda(fn, iters)
         dev = device_ms(fn, iters)
-        out[key] = out["event_" + key] if dev is None else dev
-        timed_by.add("events" if dev is None else "profiler")
-    out["timed_by"] = "+".join(sorted(timed_by))
+        out[key] = dev["ms"]
+        out[key.replace("ms", "spread")] = dev["spread"]
+        out[key.replace("ms", "kernels")] = dev["kernels_per_call"]
+        out[key.replace("ms", "dropped")] = dev["dropped_windows"]
+    out["library_ms"] = min(out["library_i64_ms"], out["library_i32_ms"])
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
     return {
         **out,
-        "bound_ms": max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3,
+        "bound_ms": bound_ms,
         "bound_by": ("bytes" if nbytes / HBM_BYTES_PER_S
                      >= ops / INT32_OPS_PER_S else "operations"),
+        "bound_share": bound_ms / out["ms"],
         "bytes": nbytes,
         "shape": [rows, nch, capw_pad],
     }
 
 
 def phase_kernels(tag: str) -> dict:
-    from ceracoder_tpu_torch.ops.bitpack import merge_windows
+    from ceracoder_tpu_torch.ops.bitpack import merge_geometry, merge_windows
 
     gen = torch.Generator().manual_seed(2024)
+    errs = []
     for rows, nch, capw_pad in ((68, 223, 5888), (7, 50, 1024),
                                 (3, 9, 256), (135, 223, 16384)):
-        n = merge_numbers(random_merge_case(gen, rows, nch, capw_pad), 20)
+        case = random_merge_case(gen, rows, nch, capw_pad)
+        errs.append(merge_err(case))
+        dev = device_ms(lambda: merge_windows(*case), 200)
         print(f"{tag} K1 random {rows}x{nch} capw_pad={capw_pad}: "
-              f"max_abs_err={n['max_abs_err']}")
-        check(n["max_abs_err"] == 0, "K1 differs from its plain version")
+              f"max_abs_err={errs[-1]}; device ms {dev['ms']:.6f} "
+              f"{dev['spread']}")
+    for name, (sw, partials, capw_pad) in merge_edge_cases().items():
+        errs.append(merge_err((sw.cuda(), partials.cuda(), capw_pad)))
+        print(f"{tag} K1 edge case {name} {tuple(sw.shape)} "
+              f"capw_pad={capw_pad}: max_abs_err={errs[-1]}")
+    check(max(errs) == 0, "K1 differs from its plain version")
     real = capture_merge_inputs(1920, 1088, 6)
-    numbers = {}
+    numbers = {"max_abs_err": max(errs)}
     for kind, case in zip(("IDR", "P"), real):
         n = merge_numbers(case)
         numbers[kind] = n
-        print(f"{tag} K1 1080p {kind} frame {n['shape']}: "
-              f"max_abs_err={n['max_abs_err']}; device time "
-              f"({n['timed_by']}) ms={n['ms']:.6f} "
-              f"plain_ms={n['plain_ms']:.6f} "
-              f"library_ms(scatter_add_)={n['library_ms']:.6f}; "
-              f"CUDA-event time per call ms={n['event_ms']:.6f} "
-              f"plain_ms={n['event_plain_ms']:.6f} "
-              f"library_ms={n['event_library_ms']:.6f}; "
-              f"bound_ms={n['bound_ms']:.6f} ({n['bound_by']}, "
-              f"{n['bytes']} B)")
+        geo = merge_geometry(*n["shape"])
+        print(f"{tag} K1 1080p {kind} frame {n['shape']} {geo}: "
+              f"max_abs_err={n['max_abs_err']}; device ms (profiler, "
+              f"median [min, max] of 5 windows, kernels/call): "
+              f"K1 {n['ms']:.6f} {n['spread']} x{n['kernels']}, "
+              f"plain {n['plain_ms']:.6f} {n['plain_spread']} "
+              f"x{n['plain_kernels']}, scatter_add_ int64 "
+              f"{n['library_i64_ms']:.6f} {n['library_i64_spread']} "
+              f"x{n['library_i64_kernels']}, scatter_add_ int32 "
+              f"{n['library_i32_ms']:.6f} {n['library_i32_spread']} "
+              f"x{n['library_i32_kernels']}; CUDA-event ms per call: "
+              f"K1 {n['event_ms']:.6f} plain {n['event_plain_ms']:.6f} "
+              f"int64 {n['event_library_i64_ms']:.6f} int32 "
+              f"{n['event_library_i32_ms']:.6f}; profiler windows set "
+              f"aside (lost events) K1/plain/int64/int32: {n['dropped']}/"
+              f"{n['plain_dropped']}/{n['library_i64_dropped']}/"
+              f"{n['library_i32_dropped']}; bound_ms="
+              f"{n['bound_ms']:.6f} ({n['bound_by']}, {n['bytes']} B), "
+              f"share of bound {n['bound_share']:.4f}; K1 below the "
+              f"library call: {n['ms'] < n['library_ms']}")
         check(n["max_abs_err"] == 0, f"K1 differs on the {kind} frame")
     merge_windows.launches = 0
     return numbers
@@ -353,9 +476,12 @@ def main() -> int:
         "source": "ceracoder_tpu_torch/csrc/merge_windows.cu",
         "replaces": KERNELS["merge_windows"][0],
         "launches": main_out["k1_launches"],
-        "max_abs_err": max(k1["IDR"]["max_abs_err"], p["max_abs_err"]),
-        "ms": p["ms"], "plain_ms": p["plain_ms"], "bound_ms": p["bound_ms"],
-        "bound_by": p["bound_by"], "library_ms": p["library_ms"],
+        "max_abs_err": max(k1["max_abs_err"], k1["IDR"]["max_abs_err"],
+                           p["max_abs_err"]),
+        "ms": p["ms"], "ms_spread": p["spread"], "plain_ms": p["plain_ms"],
+        "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
+        "bound_share": p["bound_share"], "library_ms": p["library_ms"],
+        "library_i32_ms": p["library_i32_ms"], "design": "cluster",
     }]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,8 @@
 """K1 window merge: the plain version (merge_windows_ref) against the
 JAX tree_merge and a numpy loop, against the JAX Pallas merge_windows
-(interpret mode) only where that kernel is right, and — on a card — the
-CUDA kernel against the plain version."""
+(interpret mode) only where that kernel is right, the kernel's launch
+geometry (merge_geometry), and — on a card — the CUDA kernel against
+the plain version on chip_smoke.py's edge cases."""
 
 import numpy as np
 import pytest
@@ -12,12 +13,17 @@ import jax.numpy as jnp
 from ceracoder_tpu.ops.bitpack import merge_windows as j_merge_windows
 from ceracoder_tpu.ops.bitpack import tree_merge
 from ceracoder_tpu_torch.ops.bitpack import (
+    STAGE_CHUNKS,
     WIN,
     i32_to_u32,
+    merge_geometry,
     merge_windows,
     merge_windows_ref,
     u32_to_i32,
 )
+from chip_smoke import merge_edge_cases
+
+EDGE_CASES = merge_edge_cases()
 
 
 def _case(seed, rows, nch, max_span, capw_pad):
@@ -43,8 +49,9 @@ def _numpy_merge(sw, partials, capw_pad):
     for r in range(sw.shape[0]):
         for c in range(sw.shape[1]):
             for k in range(WIN):
-                if sw[r, c] + k < capw_pad:
-                    out[r, sw[r, c] + k] += np.uint64(partials[r, c, k])
+                pos = int(sw[r, c]) + k
+                if 0 <= pos < capw_pad:
+                    out[r, pos] += np.uint64(partials[r, c, k])
     return (out & 0xFFFFFFFF).astype(np.uint32)
 
 
@@ -108,15 +115,63 @@ def test_wrapper_uses_plain_version_on_cpu():
         merge_windows(torch.as_tensor(sw), p, 1 << 20)
 
 
+@pytest.mark.parametrize("name", sorted(EDGE_CASES))
+def test_ref_matches_numpy_on_edge_cases(name):
+    sw, p, capw_pad = EDGE_CASES[name]
+    want = _numpy_merge(sw.numpy(), i32_to_u32(p).numpy(), capw_pad)
+    assert np.array_equal(_ref(sw.numpy(), i32_to_u32(p).numpy(),
+                               capw_pad), want)
+
+
+@pytest.mark.parametrize("rows,nch,capw_pad", [
+    (68, 215, 5888), (68, 223, 5888), (135, 223, 16384), (7, 50, 1024),
+    (3, 9, 256), (1, 3, 256), (2, 1, 256)])
+def test_merge_geometry_invariants(rows, nch, capw_pad):
+    """Every chunk is taken by exactly one CTA of its row's cluster and
+    every output word below capw_pad has exactly one owner, as the
+    kernel derives them from the geometry; its shared memory fits."""
+    g = merge_geometry(rows, nch, capw_pad)
+    assert 1 <= g.cluster <= 8 and g.grid == rows * g.cluster
+    assert g.grid % g.cluster == 0
+    taken = np.zeros(nch, np.int64)
+    owned = np.zeros(capw_pad, np.int64)
+    for j in range(g.cluster):
+        c_begin = min(j * g.chunks_per_cta, nch)
+        taken[c_begin:min(c_begin + g.chunks_per_cta, nch)] += 1
+        owned[j * g.seg:min((j + 1) * g.seg, capw_pad)] += 1
+    assert (taken == 1).all() and (owned == 1).all()
+    assert g.seg % 4 == 0        # 16-byte vector stores
+    assert 1 <= g.stage_chunks <= min(g.chunks_per_cta, STAGE_CHUNKS)
+    assert g.smem_bytes == (g.stage_chunks * WIN * 4 + g.seg * 4 + 16
+                            + g.chunks_per_cta * 4)
+    assert g.smem_bytes <= 232448
+
+
+def test_wrapper_rejects_misaligned_partials():
+    sw, partials = _case(4, 2, 5, 30, 512)
+    p = u32_to_i32(torch.as_tensor(partials.astype(np.int64)))
+    base = torch.zeros(p.numel() + 1, dtype=torch.int32)
+    shifted = base[1:].view(p.shape)
+    shifted.copy_(p)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 4
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        merge_windows(torch.as_tensor(sw), shifted, 512)
+
+
 @pytest.mark.cuda
-def test_cuda_kernel_matches_plain_version():
+@pytest.mark.parametrize("name", [*sorted(EDGE_CASES), "sorted_rows_1080p"])
+def test_cuda_kernel_matches_plain_version(name):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "False)")
-    capw_pad = 5888
-    sw, partials = _case(9, 68, 40, 63, capw_pad)
-    sw_t = torch.as_tensor(sw, device="cuda")
-    p_t = u32_to_i32(torch.as_tensor(partials.astype(np.int64))).cuda()
+    if name == "sorted_rows_1080p":
+        capw_pad = 5888
+        sw, partials = _case(9, 68, 40, 63, capw_pad)
+        sw_t = torch.as_tensor(sw, device="cuda")
+        p_t = u32_to_i32(torch.as_tensor(partials.astype(np.int64))).cuda()
+    else:
+        sw_t, p_t, capw_pad = EDGE_CASES[name]
+        sw_t, p_t = sw_t.cuda(), p_t.cuda()
     before = merge_windows.launches
     got = merge_windows(sw_t, p_t, capw_pad)
     torch.cuda.synchronize()
