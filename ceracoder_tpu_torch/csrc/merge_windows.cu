@@ -13,54 +13,46 @@
 // Bound: bytes. At 1080p a P frame reads 68 x 215 x 64 x 4 B of partials
 // (3.74 MB) and 58 KB of start words and writes 68 x 5888 x 4 B (1.60 MB):
 // 1.6 us at 3.35 TB/s. The partials were written just before by
-// pack_rows, so the reads mostly hit the 50 MB L2.
+// pack_rows, so the reads mostly hit the 50 MB L2. A launch alone costs
+// about 1.2 us of device time at this grid, so the kernel is latency-bound.
 //
 // What held the first design back (one 256-thread CTA per row, the row in
-// shared memory): 68 CTAs on 132 SMs; each thread issued about 54
-// dependent 4-byte loads, each behind a data-dependent branch and a
-// shared-memory atomic, so few bytes were in flight; and zeroing, scatter
-// and store ran one after another. It took 16.6 us, 10x its bound.
+// shared memory, 16.6 us): each thread issued about 54 dependent 4-byte
+// loads, each behind a data-dependent branch and a shared-memory atomic,
+// so few bytes were in flight per SM; zeroing, scatter and store ran one
+// after another.
 //
-// This design: one thread-block cluster of C CTAs per row (C = 8; the
-// geometry comes from ops/bitpack.py:merge_geometry).
-// - CTA j owns output words [j*seg, (j+1)*seg) in its shared memory and
-//   takes chunks [j*cpc, (j+1)*cpc): R*C CTAs (544 at 1080p) fill the card.
-// - One thread starts one bulk asynchronous copy of the CTA's slab of
-//   partials (whole 256-byte windows, at most stage_chunks of them) into
-//   shared memory on an mbarrier; meanwhile the other threads zero the
-//   owned segment and read the chunk starts. All the CTA's bytes are in
-//   flight at once.
-// - cluster.sync(), then each thread reads 16-byte vectors of the slab and
-//   adds each nonzero word into its owner's segment through distributed
-//   shared memory (cluster.map_shared_rank + atomicAdd).
-// - cluster.sync() again (every remote add has landed and no CTA exits
-//   while a neighbour may still write to it), then each CTA stores its
-//   segment with 16-byte coalesced stores, clipped at capw_pad.
-// The launch goes on the caller's stream; the C entry point returns
-// cudaGetLastError() so the wrapper can raise on a refused launch.
+// A cluster of 8 CTAs per row (each CTA a slab of chunks and a segment
+// of the row, remote adds through distributed shared memory) was tried
+// next and measured 5.4 us: the cluster launch and its two cluster
+// barriers cost more than the loads they spread, and the remote adds
+// compile to generic GPU-scope atomics, which make dense inputs slow.
+//
+// This design keeps one CTA per row, but with 1024 threads, and puts all
+// of the row's bytes in flight at once:
+// - One thread starts one bulk asynchronous copy of the row's partial
+//   windows (all of them when nch <= stage_chunks; otherwise stage by
+//   stage) into shared memory on an mbarrier. Meanwhile the other threads
+//   zero the row's words in shared memory and read the chunk starts.
+// - __syncthreads, wait on the mbarrier; each thread then reads 16-byte
+//   vectors of the slab and adds each nonzero word into the row with a
+//   shared-memory atomic (local, never remote). The chunk of a vector is
+//   a shift of its index.
+// - __syncthreads; the CTA stores the row with 16-byte coalesced stores.
+// The geometry comes from ops/bitpack.py:merge_geometry. The launch goes
+// on the caller's stream; the C entry point returns cudaGetLastError() so
+// the wrapper can raise on a refused launch.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
-
-namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kWin = 64;                  // words per partial window
 constexpr int kVecPerWin = kWin / 4;      // 16-byte vectors per window
 constexpr int kVecShift = 4;              // log2(kVecPerWin)
-constexpr int kThreads = 256;
-
-// Launch geometry from ops/bitpack.py:merge_geometry.
-struct Geometry {
-    int nch;             // chunks per row
-    int capw_pad;        // output words per row
-    int seg;             // output words each CTA owns (a multiple of 4)
-    int chunks_per_cta;  // chunks each CTA takes
-    int stage_chunks;    // chunks one bulk copy brings in
-};
+constexpr int kThreads = 1024;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
     return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -96,94 +88,76 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         :: "r"(smem_u32(bar)), "r"(parity) : "memory");
 }
 
-// Add v at row word pos into the segment of the CTA that owns it.
-__device__ __forceinline__ void add_word(cg::cluster_group& cluster,
-                                         unsigned* seg_words,
-                                         const Geometry& g, long long pos,
-                                         unsigned v) {
-    if (v == 0u || pos < 0 || pos >= g.capw_pad) return;
-    const int p = static_cast<int>(pos);
-    const int owner = p / g.seg;
-    atomicAdd(cluster.map_shared_rank(seg_words, owner) + (p - owner * g.seg),
-              v);
+__device__ __forceinline__ void add_word(unsigned* words, int capw_pad,
+                                         long long pos, unsigned v) {
+    if (v != 0u && pos >= 0 && pos < capw_pad)
+        atomicAdd(words + pos, v);
 }
 
 __global__ void __launch_bounds__(kThreads)
 merge_windows_kernel(const int* __restrict__ sw,
                      const unsigned* __restrict__ partials,
-                     unsigned* __restrict__ out, Geometry g) {
-    // [slab: stage_chunks windows][segment: seg words][mbarrier, 16 B]
-    // [starts: chunks_per_cta ints]
+                     unsigned* __restrict__ out, int nch, int capw_pad,
+                     int stage_chunks) {
+    // [slab: stage_chunks windows][row: capw_pad words, rounded up to a
+    // multiple of 4][mbarrier, 16 B][starts: nch ints]
     extern __shared__ __align__(16) unsigned char smem[];
     const uint4* slab = reinterpret_cast<const uint4*>(smem);
-    unsigned* seg_words =
-        reinterpret_cast<unsigned*>(smem + g.stage_chunks * kWin * 4);
-    uint64_t* bar = reinterpret_cast<uint64_t*>(seg_words + g.seg);
+    const int nvec = (capw_pad + 3) / 4;
+    uint4* row4 = reinterpret_cast<uint4*>(smem + stage_chunks * kWin * 4);
+    unsigned* words = reinterpret_cast<unsigned*>(row4);
+    uint64_t* bar = reinterpret_cast<uint64_t*>(row4 + nvec);
     int* starts = reinterpret_cast<int*>(bar + 2);
 
-    cg::cluster_group cluster = cg::this_cluster();
-    const int rank = static_cast<int>(cluster.block_rank());
-    const int row = blockIdx.x / cluster.num_blocks();
-    const int c_begin = min(rank * g.chunks_per_cta, g.nch);
-    const int c_end = min(c_begin + g.chunks_per_cta, g.nch);
-    const size_t row_c0 = static_cast<size_t>(row) * g.nch + c_begin;
+    const size_t row_c0 = static_cast<size_t>(blockIdx.x) * nch;
     const unsigned* src = partials + row_c0 * kWin;
 
-    if (threadIdx.x == 0 && c_begin < c_end) {
+    if (threadIdx.x == 0 && nch > 0) {
         mbar_init(bar);
-        bulk_load(smem, src, min(g.stage_chunks, c_end - c_begin) * kWin * 4,
-                  bar);
+        bulk_load(smem, src, min(stage_chunks, nch) * kWin * 4, bar);
     }
-    uint4* seg4 = reinterpret_cast<uint4*>(seg_words);
-    for (int i = threadIdx.x; i < g.seg / 4; i += kThreads)
-        seg4[i] = make_uint4(0u, 0u, 0u, 0u);
-    for (int i = threadIdx.x; i < c_end - c_begin; i += kThreads)
+    for (int i = threadIdx.x; i < nvec; i += kThreads)
+        row4[i] = make_uint4(0u, 0u, 0u, 0u);
+    for (int i = threadIdx.x; i < nch; i += kThreads)
         starts[i] = sw[row_c0 + i];
-    // every segment of the row is zeroed, and every CTA of the cluster
-    // runs, before any remote add; also publishes the barrier's init
-    cluster.sync();
+    __syncthreads();  // row zeroed, starts and the barrier's init visible
 
     uint32_t parity = 0u;
-    for (int c0 = c_begin; c0 < c_end; c0 += g.stage_chunks) {
-        const int n = min(g.stage_chunks, c_end - c0);
+    for (int c0 = 0; c0 < nch; c0 += stage_chunks) {
+        const int n = min(stage_chunks, nch - c0);
         mbar_wait(bar, parity);
         parity ^= 1u;
-        const int* st = starts + (c0 - c_begin);
+        const int* st = starts + c0;
         for (int v = threadIdx.x; v < n * kVecPerWin; v += kThreads) {
             const uint4 q = slab[v];
             if ((q.x | q.y | q.z | q.w) == 0u) continue;
             const long long pos = static_cast<long long>(st[v >> kVecShift])
                                   + ((v & (kVecPerWin - 1)) << 2);
-            add_word(cluster, seg_words, g, pos, q.x);
-            add_word(cluster, seg_words, g, pos + 1, q.y);
-            add_word(cluster, seg_words, g, pos + 2, q.z);
-            add_word(cluster, seg_words, g, pos + 3, q.w);
+            add_word(words, capw_pad, pos, q.x);
+            add_word(words, capw_pad, pos + 1, q.y);
+            add_word(words, capw_pad, pos + 2, q.z);
+            add_word(words, capw_pad, pos + 3, q.w);
         }
-        const int next = c0 + g.stage_chunks;
-        if (next < c_end) {
+        const int next = c0 + stage_chunks;
+        if (next < nch) {
             __syncthreads();  // every thread is done reading the slab
             if (threadIdx.x == 0) {
                 // order the generic-proxy reads before the async refill
                 asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-                bulk_load(smem, src + static_cast<size_t>(next - c_begin) * kWin,
-                          min(g.stage_chunks, c_end - next) * kWin * 4, bar);
+                bulk_load(smem, src + static_cast<size_t>(next) * kWin,
+                          min(stage_chunks, nch - next) * kWin * 4, bar);
             }
         }
     }
-    // every remote add into this segment has landed, and no CTA exits
-    // while a neighbour may still add into its segment
-    cluster.sync();
+    __syncthreads();  // every add has landed
 
-    const int lo = rank * g.seg;
-    const int n_out = min(g.seg, g.capw_pad - lo);
-    unsigned* dst = out + static_cast<size_t>(row) * g.capw_pad + lo;
-    if ((g.capw_pad & 3) == 0) {  // rows and segments 16-byte aligned
+    unsigned* dst = out + static_cast<size_t>(blockIdx.x) * capw_pad;
+    if ((capw_pad & 3) == 0) {  // rows 16-byte aligned
         uint4* dst4 = reinterpret_cast<uint4*>(dst);
-        for (int i = threadIdx.x; i < n_out / 4; i += kThreads)
-            dst4[i] = seg4[i];
+        for (int i = threadIdx.x; i < nvec; i += kThreads) dst4[i] = row4[i];
     } else {
-        for (int i = threadIdx.x; i < n_out; i += kThreads)
-            dst[i] = seg_words[i];
+        for (int i = threadIdx.x; i < capw_pad; i += kThreads)
+            dst[i] = words[i];
     }
 }
 
@@ -191,8 +165,7 @@ merge_windows_kernel(const int* __restrict__ sw,
 
 extern "C" int merge_windows_launch(const void* sw, const void* partials,
                                     void* out, int rows, int nch,
-                                    int capw_pad, int cluster, int seg,
-                                    int chunks_per_cta, int stage_chunks,
+                                    int capw_pad, int stage_chunks,
                                     int smem_bytes, void* stream) {
     if (smem_bytes > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
@@ -200,23 +173,9 @@ extern "C" int merge_windows_launch(const void* sw, const void* partials,
             smem_bytes);
         if (e != cudaSuccess) return static_cast<int>(e);
     }
-    cudaLaunchAttribute attr;
-    attr.id = cudaLaunchAttributeClusterDimension;
-    attr.val.clusterDim.x = cluster;
-    attr.val.clusterDim.y = 1;
-    attr.val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(rows * cluster);
-    cfg.blockDim = dim3(kThreads);
-    cfg.dynamicSmemBytes = smem_bytes;
-    cfg.stream = static_cast<cudaStream_t>(stream);
-    cfg.attrs = &attr;
-    cfg.numAttrs = 1;
-    const Geometry g{nch, capw_pad, seg, chunks_per_cta, stage_chunks};
-    cudaError_t e = cudaLaunchKernelEx(
-        &cfg, merge_windows_kernel, static_cast<const int*>(sw),
-        static_cast<const unsigned*>(partials), static_cast<unsigned*>(out),
-        g);
-    if (e != cudaSuccess) return static_cast<int>(e);
+    merge_windows_kernel<<<rows, kThreads, smem_bytes,
+                           static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int*>(sw), static_cast<const unsigned*>(partials),
+        static_cast<unsigned*>(out), nch, capw_pad, stage_chunks);
     return static_cast<int>(cudaGetLastError());
 }

@@ -10,9 +10,10 @@ chunk's first word sw[c]. What remains is the merge
 at data-dependent offsets — a scatter. On the TPU this was the Pallas
 kernel ceracoder_tpu/ops/bitpack.py:merge_windows (production used its
 jnp twin `tree_merge`). Here it is the CUDA kernel
-csrc/merge_windows.cu (one thread-block cluster per row, launch
-geometry from `merge_geometry`), with `merge_windows_ref` as its plain
-PyTorch version. Both are an exact scatter-add mod 2^32 that drops words at or
+csrc/merge_windows.cu (one CTA per row, the row's partials brought
+into shared memory by bulk copies; launch geometry from
+`merge_geometry`), with `merge_windows_ref` as its plain PyTorch
+version. Both are an exact scatter-add mod 2^32 that drops words at or
 past capw_pad; on every row whose words reach the bitstream (no chunk
 wider than WIN-1 words, total within capacity) that equals
 `tree_merge`. Neither wraps words around a 128-lane window as the
@@ -34,8 +35,7 @@ import torch
 WIN = 64                    # partial window width (words)
 MAX_SMEM_BYTES = 232448     # dynamic shared memory one CTA can use (H100)
 M32 = 0xFFFFFFFF
-CLUSTER = 8                 # CTAs per row: the portable cluster size
-STAGE_CHUNKS = 32           # windows one bulk copy brings in (8 KB)
+STAGE_CHUNKS = 256          # windows one bulk copy brings in (64 KB)
 
 
 def u32_to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -68,27 +68,23 @@ def merge_windows_ref(sw: torch.Tensor, partials: torch.Tensor,
 
 class MergeGeometry(NamedTuple):
     """Launch geometry of the K1 kernel for one (rows, nch, capw_pad)."""
-    cluster: int         # CTAs per row, one thread-block cluster
-    grid: int            # CTAs in all (rows * cluster)
-    seg: int             # output words each CTA owns (a multiple of 4)
-    chunks_per_cta: int  # chunks each CTA takes
-    stage_chunks: int    # chunks one bulk copy brings in
+    grid: int            # CTAs: one per row
+    stage_chunks: int    # partial windows one bulk copy brings in
+    stages: int          # bulk copies per CTA
     smem_bytes: int      # dynamic shared memory per CTA
 
 
 def merge_geometry(rows: int, nch: int, capw_pad: int) -> MergeGeometry:
-    """CTA j of a row's cluster owns output words [j*seg, (j+1)*seg)
-    and takes chunks [j*chunks_per_cta, (j+1)*chunks_per_cta), both
-    clipped at the row's end. Its shared memory holds a slab of
-    stage_chunks partial windows, its segment, an mbarrier (16 bytes
-    reserved) and the starts of its chunks (csrc/merge_windows.cu)."""
-    seg = -(-capw_pad // CLUSTER)
-    seg = -(-seg // 4) * 4
-    chunks_per_cta = -(-nch // CLUSTER)
-    stage_chunks = min(chunks_per_cta, STAGE_CHUNKS)
-    smem = stage_chunks * WIN * 4 + seg * 4 + 16 + chunks_per_cta * 4
-    return MergeGeometry(CLUSTER, rows * CLUSTER, seg, chunks_per_cta,
-                         stage_chunks, smem)
+    """The CTA of row r takes all of the row's chunks, in stages of
+    stage_chunks windows (one stage when nch <= STAGE_CHUNKS), and owns
+    all of its capw_pad words. Its shared memory holds the slab of one
+    stage, the row's words rounded up to whole 16-byte vectors, an
+    mbarrier (16 bytes reserved) and the starts of the row's chunks
+    (csrc/merge_windows.cu)."""
+    stage_chunks = min(nch, STAGE_CHUNKS)
+    smem = (stage_chunks * WIN * 4 + -(-capw_pad // 4) * 16 + 16
+            + nch * 4)
+    return MergeGeometry(rows, stage_chunks, -(-nch // STAGE_CHUNKS), smem)
 
 
 def _check(sw: torch.Tensor, partials: torch.Tensor,
@@ -124,7 +120,7 @@ def _launcher():
     from ceracoder_tpu_torch.utils.cuda_build import load_library
 
     fn = load_library("merge_windows").merge_windows_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -151,8 +147,7 @@ def merge_windows(sw: torch.Tensor, partials: torch.Tensor,
     with torch.cuda.device(sw.device):
         stream = torch.cuda.current_stream(sw.device).cuda_stream
         err = launch(sw.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                     r, nch, capw_pad, geo.cluster, geo.seg,
-                     geo.chunks_per_cta, geo.stage_chunks, geo.smem_bytes,
+                     r, nch, capw_pad, geo.stage_chunks, geo.smem_bytes,
                      stream)
     if err != 0:
         raise RuntimeError(f"merge_windows kernel launch failed: CUDA "

@@ -125,26 +125,24 @@ def test_ref_matches_numpy_on_edge_cases(name):
 
 @pytest.mark.parametrize("rows,nch,capw_pad", [
     (68, 215, 5888), (68, 223, 5888), (135, 223, 16384), (7, 50, 1024),
-    (3, 9, 256), (1, 3, 256), (2, 1, 256)])
+    (3, 9, 256), (1, 3, 256), (2, 1, 256), (2, 2 * STAGE_CHUNKS + 5, 8192)])
 def test_merge_geometry_invariants(rows, nch, capw_pad):
-    """Every chunk is taken by exactly one CTA of its row's cluster and
-    every output word below capw_pad has exactly one owner, as the
-    kernel derives them from the geometry; its shared memory fits."""
+    """One CTA per row: its bulk copies take every chunk of the row
+    exactly once and its shared memory holds every output word below
+    capw_pad in whole 16-byte vectors; the shared memory fits a CTA."""
     g = merge_geometry(rows, nch, capw_pad)
-    assert 1 <= g.cluster <= 8 and g.grid == rows * g.cluster
-    assert g.grid % g.cluster == 0
+    assert g.grid == rows
     taken = np.zeros(nch, np.int64)
-    owned = np.zeros(capw_pad, np.int64)
-    for j in range(g.cluster):
-        c_begin = min(j * g.chunks_per_cta, nch)
-        taken[c_begin:min(c_begin + g.chunks_per_cta, nch)] += 1
-        owned[j * g.seg:min((j + 1) * g.seg, capw_pad)] += 1
-    assert (taken == 1).all() and (owned == 1).all()
-    assert g.seg % 4 == 0        # 16-byte vector stores
-    assert 1 <= g.stage_chunks <= min(g.chunks_per_cta, STAGE_CHUNKS)
-    assert g.smem_bytes == (g.stage_chunks * WIN * 4 + g.seg * 4 + 16
-                            + g.chunks_per_cta * 4)
+    for s in range(g.stages):
+        taken[s * g.stage_chunks:min((s + 1) * g.stage_chunks, nch)] += 1
+    assert (taken == 1).all()
+    assert 1 <= g.stage_chunks <= STAGE_CHUNKS
+    row = g.smem_bytes - g.stage_chunks * WIN * 4 - 16 - nch * 4
+    assert row % 16 == 0 and capw_pad * 4 <= row < capw_pad * 4 + 16
     assert g.smem_bytes <= 232448
+    # every chunk of the real 1080p frames comes in one bulk copy
+    if capw_pad == 5888:
+        assert g.stages == 1
 
 
 def test_wrapper_rejects_misaligned_partials():
