@@ -13,80 +13,45 @@
 // Bound: bytes. At 1080p a P frame reads 68 x 215 x 64 x 4 B of partials
 // (3.74 MB) and 58 KB of start words and writes 68 x 5888 x 4 B (1.60 MB):
 // 1.6 us at 3.35 TB/s. The partials were written just before by
-// pack_rows, so the reads mostly hit the 50 MB L2. A launch alone costs
-// about 1.2 us of device time at this grid, so the kernel is latency-bound.
+// pack_rows, so the reads mostly hit the 50 MB L2. The fixed cost of a
+// launch is of the same order as the bound, so latency, not bandwidth,
+// sets the time.
 //
 // What held the first design back (one 256-thread CTA per row, the row in
-// shared memory, 16.6 us): each thread issued about 54 dependent 4-byte
-// loads, each behind a data-dependent branch and a shared-memory atomic,
-// so few bytes were in flight per SM; zeroing, scatter and store ran one
-// after another.
+// shared memory, 16.6 us): each thread made about 54 4-byte loads, one
+// after another behind a data-dependent branch and a shared-memory
+// atomic, so few bytes were in flight per SM.
 //
-// A cluster of 8 CTAs per row (each CTA a slab of chunks and a segment
-// of the row, remote adds through distributed shared memory) was tried
-// next and measured 5.4 us: the cluster launch and its two cluster
-// barriers cost more than the loads they spread, and the remote adds
-// compile to generic GPU-scope atomics, which make dense inputs slow.
+// This design keeps one CTA per row and the row's words in shared memory,
+// but puts all of the row's loads in flight at once: 1024 threads each
+// load kVecPerThread 16-byte vectors of the row's partials (and the start
+// of each vector's chunk) into registers, all started before any is used,
+// and the CTA zeroes the row while they are in flight. After
+// __syncthreads each nonzero word goes into the row with a shared-memory
+// atomic, and after a second __syncthreads the CTA stores the row with
+// 16-byte coalesced stores. A row of more than kThreads * kVecPerThread
+// vectors (256 chunks) takes further rounds of the same.
 //
-// This design keeps one CTA per row, but with 1024 threads, and puts all
-// of the row's bytes in flight at once:
-// - One thread starts one bulk asynchronous copy of the row's partial
-//   windows (all of them when nch <= stage_chunks; otherwise stage by
-//   stage) into shared memory on an mbarrier. Meanwhile the other threads
-//   zero the row's words in shared memory and read the chunk starts.
-// - __syncthreads, wait on the mbarrier; each thread then reads 16-byte
-//   vectors of the slab and adds each nonzero word into the row with a
-//   shared-memory atomic (local, never remote). The chunk of a vector is
-//   a shift of its index.
-// - __syncthreads; the CTA stores the row with 16-byte coalesced stores.
-// The geometry comes from ops/bitpack.py:merge_geometry. The launch goes
-// on the caller's stream; the C entry point returns cudaGetLastError() so
-// the wrapper can raise on a refused launch.
+// Measured and not kept (see PERF.md): a cluster of 8 CTAs per row,
+// each with a bulk asynchronous copy of a slab of chunks and remote adds
+// through distributed shared memory (5.4 us: the cluster barriers cost
+// more than the spread loads save, and the remote adds are generic
+// GPU-scope atomics); and one CTA per row with the row's partials in one
+// bulk asynchronous copy (3.7 us: one SM's copy engine takes the whole
+// 55 KB slab alone).
+//
+// The launch goes on the caller's stream; the C entry point returns
+// cudaGetLastError() so the wrapper can raise on a refused launch.
 
 #include <cuda_runtime.h>
-
-#include <cstdint>
 
 namespace {
 
 constexpr int kWin = 64;                  // words per partial window
 constexpr int kVecPerWin = kWin / 4;      // 16-byte vectors per window
 constexpr int kVecShift = 4;              // log2(kVecPerWin)
-constexpr int kThreads = 1024;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(1u) : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// One thread: arm the barrier for `bytes` and start the bulk copy.
-// src and dst are 16-byte aligned and bytes is a multiple of 256.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-                 :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];\n"
-        :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
-        : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-    asm volatile(
-        "{\n"
-        ".reg .pred done;\n"
-        "LAB_WAIT:\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
-        "@!done bra LAB_WAIT;\n"
-        "}\n"
-        :: "r"(smem_u32(bar)), "r"(parity) : "memory");
-}
+constexpr int kThreads = 1024;            // ops/bitpack.py:MERGE_THREADS
+constexpr int kVecPerThread = 4;          // ops/bitpack.py:MERGE_VECS
 
 __device__ __forceinline__ void add_word(unsigned* words, int capw_pad,
                                          long long pos, unsigned v) {
@@ -96,58 +61,50 @@ __device__ __forceinline__ void add_word(unsigned* words, int capw_pad,
 
 __global__ void __launch_bounds__(kThreads)
 merge_windows_kernel(const int* __restrict__ sw,
-                     const unsigned* __restrict__ partials,
-                     unsigned* __restrict__ out, int nch, int capw_pad,
-                     int stage_chunks) {
-    // [slab: stage_chunks windows][row: capw_pad words, rounded up to a
-    // multiple of 4][mbarrier, 16 B][starts: nch ints]
-    extern __shared__ __align__(16) unsigned char smem[];
-    const uint4* slab = reinterpret_cast<const uint4*>(smem);
-    const int nvec = (capw_pad + 3) / 4;
-    uint4* row4 = reinterpret_cast<uint4*>(smem + stage_chunks * kWin * 4);
+                     const uint4* __restrict__ partials,
+                     unsigned* __restrict__ out, int nch, int capw_pad) {
+    // the row's words, rounded up to whole 16-byte vectors
+    extern __shared__ uint4 row4[];
     unsigned* words = reinterpret_cast<unsigned*>(row4);
-    uint64_t* bar = reinterpret_cast<uint64_t*>(row4 + nvec);
-    int* starts = reinterpret_cast<int*>(bar + 2);
+    const int nvec = (capw_pad + 3) / 4;
 
     const size_t row_c0 = static_cast<size_t>(blockIdx.x) * nch;
-    const unsigned* src = partials + row_c0 * kWin;
+    const uint4* prow = partials + row_c0 * kVecPerWin;
+    const int* srow = sw + row_c0;
+    const int nv = nch * kVecPerWin;
 
-    if (threadIdx.x == 0 && nch > 0) {
-        mbar_init(bar);
-        bulk_load(smem, src, min(stage_chunks, nch) * kWin * 4, bar);
-    }
+    uint4 q[kVecPerThread];
+    int st[kVecPerThread];
+    // vector base + k * kThreads + threadIdx.x, for every k at once
+    auto load = [&](int base) {
+#pragma unroll
+        for (int k = 0; k < kVecPerThread; ++k) {
+            const int v = base + k * kThreads + threadIdx.x;
+            q[k] = v < nv ? prow[v] : make_uint4(0u, 0u, 0u, 0u);
+            st[k] = v < nv ? srow[v >> kVecShift] : 0;
+        }
+    };
+
+    load(0);
     for (int i = threadIdx.x; i < nvec; i += kThreads)
         row4[i] = make_uint4(0u, 0u, 0u, 0u);
-    for (int i = threadIdx.x; i < nch; i += kThreads)
-        starts[i] = sw[row_c0 + i];
-    __syncthreads();  // row zeroed, starts and the barrier's init visible
+    __syncthreads();  // the row is zeroed before any add
 
-    uint32_t parity = 0u;
-    for (int c0 = 0; c0 < nch; c0 += stage_chunks) {
-        const int n = min(stage_chunks, nch - c0);
-        mbar_wait(bar, parity);
-        parity ^= 1u;
-        const int* st = starts + c0;
-        for (int v = threadIdx.x; v < n * kVecPerWin; v += kThreads) {
-            const uint4 q = slab[v];
-            if ((q.x | q.y | q.z | q.w) == 0u) continue;
-            const long long pos = static_cast<long long>(st[v >> kVecShift])
-                                  + ((v & (kVecPerWin - 1)) << 2);
-            add_word(words, capw_pad, pos, q.x);
-            add_word(words, capw_pad, pos + 1, q.y);
-            add_word(words, capw_pad, pos + 2, q.z);
-            add_word(words, capw_pad, pos + 3, q.w);
+    for (int base = 0;;) {
+#pragma unroll
+        for (int k = 0; k < kVecPerThread; ++k) {
+            const uint4 v = q[k];
+            if ((v.x | v.y | v.z | v.w) == 0u) continue;
+            const int lane = (k * kThreads + threadIdx.x) & (kVecPerWin - 1);
+            const long long pos = static_cast<long long>(st[k]) + lane * 4;
+            add_word(words, capw_pad, pos, v.x);
+            add_word(words, capw_pad, pos + 1, v.y);
+            add_word(words, capw_pad, pos + 2, v.z);
+            add_word(words, capw_pad, pos + 3, v.w);
         }
-        const int next = c0 + stage_chunks;
-        if (next < nch) {
-            __syncthreads();  // every thread is done reading the slab
-            if (threadIdx.x == 0) {
-                // order the generic-proxy reads before the async refill
-                asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-                bulk_load(smem, src + static_cast<size_t>(next) * kWin,
-                          min(stage_chunks, nch - next) * kWin * 4, bar);
-            }
-        }
+        base += kThreads * kVecPerThread;
+        if (base >= nv) break;
+        load(base);
     }
     __syncthreads();  // every add has landed
 
@@ -165,8 +122,8 @@ merge_windows_kernel(const int* __restrict__ sw,
 
 extern "C" int merge_windows_launch(const void* sw, const void* partials,
                                     void* out, int rows, int nch,
-                                    int capw_pad, int stage_chunks,
-                                    int smem_bytes, void* stream) {
+                                    int capw_pad, int smem_bytes,
+                                    void* stream) {
     if (smem_bytes > 48 * 1024) {
         cudaError_t e = cudaFuncSetAttribute(
             merge_windows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -175,7 +132,7 @@ extern "C" int merge_windows_launch(const void* sw, const void* partials,
     }
     merge_windows_kernel<<<rows, kThreads, smem_bytes,
                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(sw), static_cast<const unsigned*>(partials),
-        static_cast<unsigned*>(out), nch, capw_pad, stage_chunks);
+        static_cast<const int*>(sw), static_cast<const uint4*>(partials),
+        static_cast<unsigned*>(out), nch, capw_pad);
     return static_cast<int>(cudaGetLastError());
 }

@@ -10,11 +10,11 @@ chunk's first word sw[c]. What remains is the merge
 at data-dependent offsets — a scatter. On the TPU this was the Pallas
 kernel ceracoder_tpu/ops/bitpack.py:merge_windows (production used its
 jnp twin `tree_merge`). Here it is the CUDA kernel
-csrc/merge_windows.cu (one CTA per row, the row's partials brought
-into shared memory by bulk copies; launch geometry from
-`merge_geometry`), with `merge_windows_ref` as its plain PyTorch
-version. Both are an exact scatter-add mod 2^32 that drops words at or
-past capw_pad; on every row whose words reach the bitstream (no chunk
+csrc/merge_windows.cu (one CTA per row, its loads all in flight at
+once; launch geometry from `merge_geometry`), with `merge_windows_ref`
+as its plain PyTorch version. Both are an exact scatter-add mod 2^32
+that drops words at or past capw_pad (and before 0); on every row
+whose words reach the bitstream (no chunk
 wider than WIN-1 words, total within capacity) that equals
 `tree_merge`. Neither wraps words around a 128-lane window as the
 Pallas kernel does.
@@ -35,7 +35,8 @@ import torch
 WIN = 64                    # partial window width (words)
 MAX_SMEM_BYTES = 232448     # dynamic shared memory one CTA can use (H100)
 M32 = 0xFFFFFFFF
-STAGE_CHUNKS = 256          # windows one bulk copy brings in (64 KB)
+MERGE_THREADS = 1024        # threads per CTA of the K1 kernel
+MERGE_VECS = 4              # 16-byte partial vectors a thread loads at once
 
 
 def u32_to_i32(x: torch.Tensor) -> torch.Tensor:
@@ -69,22 +70,21 @@ def merge_windows_ref(sw: torch.Tensor, partials: torch.Tensor,
 class MergeGeometry(NamedTuple):
     """Launch geometry of the K1 kernel for one (rows, nch, capw_pad)."""
     grid: int            # CTAs: one per row
-    stage_chunks: int    # partial windows one bulk copy brings in
-    stages: int          # bulk copies per CTA
+    threads: int         # threads per CTA
+    rounds: int          # load rounds of threads * MERGE_VECS vectors
     smem_bytes: int      # dynamic shared memory per CTA
 
 
 def merge_geometry(rows: int, nch: int, capw_pad: int) -> MergeGeometry:
-    """The CTA of row r takes all of the row's chunks, in stages of
-    stage_chunks windows (one stage when nch <= STAGE_CHUNKS), and owns
-    all of its capw_pad words. Its shared memory holds the slab of one
-    stage, the row's words rounded up to whole 16-byte vectors, an
-    mbarrier (16 bytes reserved) and the starts of the row's chunks
+    """The CTA of row r takes all of the row's nch * 16 partial vectors
+    (thread t of round j loads vectors j*T*V + k*T + t, k < V, with T
+    threads and V = MERGE_VECS) and owns all of its capw_pad words,
+    held in shared memory as whole 16-byte vectors
     (csrc/merge_windows.cu)."""
-    stage_chunks = min(nch, STAGE_CHUNKS)
-    smem = (stage_chunks * WIN * 4 + -(-capw_pad // 4) * 16 + 16
-            + nch * 4)
-    return MergeGeometry(rows, stage_chunks, -(-nch // STAGE_CHUNKS), smem)
+    per_round = MERGE_THREADS * MERGE_VECS
+    rounds = max(1, -(-nch * (WIN // 4) // per_round))
+    return MergeGeometry(rows, MERGE_THREADS, rounds,
+                         -(-capw_pad // 4) * 16)
 
 
 def _check(sw: torch.Tensor, partials: torch.Tensor,
@@ -108,7 +108,7 @@ def _check(sw: torch.Tensor, partials: torch.Tensor,
         raise ValueError(f"capw_pad={capw_pad}, nch={sw.shape[1]} needs "
                          f"{geo.smem_bytes} bytes of shared memory per CTA; "
                          f"one CTA has {MAX_SMEM_BYTES}")
-    # the kernel bulk-copies whole windows from partials
+    # the kernel loads partials as 16-byte vectors
     if partials.data_ptr() % 16:
         raise ValueError("merge_windows needs partials 16-byte aligned")
     return geo
@@ -120,7 +120,7 @@ def _launcher():
     from ceracoder_tpu_torch.utils.cuda_build import load_library
 
     fn = load_library("merge_windows").merge_windows_launch
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
@@ -147,8 +147,7 @@ def merge_windows(sw: torch.Tensor, partials: torch.Tensor,
     with torch.cuda.device(sw.device):
         stream = torch.cuda.current_stream(sw.device).cuda_stream
         err = launch(sw.data_ptr(), partials.data_ptr(), out.data_ptr(),
-                     r, nch, capw_pad, geo.stage_chunks, geo.smem_bytes,
-                     stream)
+                     r, nch, capw_pad, geo.smem_bytes, stream)
     if err != 0:
         raise RuntimeError(f"merge_windows kernel launch failed: CUDA "
                            f"error {err}")

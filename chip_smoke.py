@@ -162,12 +162,13 @@ def merge_edge_cases(seed: int = 7) -> dict:
     """K1 edge cases as CPU tensors, name -> (sw, partials, capw_pad),
     made with numpy from `seed`: one chunk and a few; a chunk count that
     is no multiple of the 16 vectors a window spans; rows whose chunks
-    take two and three bulk copies, with windows that overlap across the
-    boundary of two copies (ops/bitpack.py:merge_geometry); unsorted
-    starts; all-zero partials; negative starts and starts at or past
-    capw_pad (int32 extremes included); capw_pad 256, 16384 and one that
-    is no multiple of 4."""
-    from ceracoder_tpu_torch.ops.bitpack import STAGE_CHUNKS, WIN, u32_to_i32
+    take two and three load rounds of the kernel, with densely
+    overlapping windows across every boundary of threads and rounds
+    (ops/bitpack.py:merge_geometry); unsorted starts; all-zero partials;
+    negative starts and starts at or past capw_pad (int32 extremes
+    included); capw_pad 256, 16384 and one that is no multiple of 4."""
+    from ceracoder_tpu_torch.ops.bitpack import (
+        MERGE_THREADS, MERGE_VECS, WIN, u32_to_i32)
 
     rng = np.random.default_rng(seed)
 
@@ -179,22 +180,19 @@ def merge_edge_cases(seed: int = 7) -> dict:
     def starts(rows, nch, capw_pad):
         return np.sort(rng.integers(0, capw_pad, (rows, nch)), axis=1)
 
-    # chunks STAGE_CHUNKS-4 .. STAGE_CHUNKS+3 start within 40 words, so
-    # windows from two bulk copies add into the same words
-    nch2 = STAGE_CHUNKS + 9
-    across = np.sort(rng.integers(0, 4096 - WIN, (2, nch2)), axis=1)
-    across[:, STAGE_CHUNKS - 4:STAGE_CHUNKS + 4] = np.sort(
-        1000 + rng.integers(0, 40, (2, 8)), axis=1)
+    per_round = MERGE_THREADS * MERGE_VECS // (WIN // 4)    # chunks
+    nch2 = per_round + 9
+    dense = np.cumsum(rng.integers(0, 9, (2, nch2)), axis=1)
     edges = np.array([[-(1 << 31), -WIN - 3, -WIN + 1, -1, 0, 200,
                        512 - WIN + 2, 511, 512, 600, (1 << 31) - 11,
                        (1 << 31) - 1]])
-    nch3 = 2 * STAGE_CHUNKS + 5
+    nch3 = 2 * per_round + 5
     cases = {
         "one_chunk": (starts(2, 1, 256), words(2, 1), 256),
         "few_chunks": (starts(3, 5, 256), words(3, 5), 256),
         "nch_21": (starts(4, 21, 1024), words(4, 21), 1024),
-        "windows_across_bulk_copies": (across, words(2, nch2), 4096),
-        "three_bulk_copies": (starts(2, nch3, 8192), words(2, nch3), 8192),
+        "overlapping_windows_two_rounds": (dense, words(2, nch2), 4096),
+        "three_rounds": (starts(2, nch3, 8192), words(2, nch3), 8192),
         "unsorted_starts": (rng.integers(0, 2048, (5, 40)), words(5, 40),
                             2048),
         "all_zero_partials": (starts(4, 30, 1024),
@@ -481,7 +479,7 @@ def main() -> int:
         "ms": p["ms"], "ms_spread": p["spread"], "plain_ms": p["plain_ms"],
         "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
         "bound_share": p["bound_share"], "library_ms": p["library_ms"],
-        "library_i32_ms": p["library_i32_ms"], "design": "row-bulk",
+        "library_i32_ms": p["library_i32_ms"], "design": "one-cta-per-row",
     }]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -13,7 +13,8 @@ import jax.numpy as jnp
 from ceracoder_tpu.ops.bitpack import merge_windows as j_merge_windows
 from ceracoder_tpu.ops.bitpack import tree_merge
 from ceracoder_tpu_torch.ops.bitpack import (
-    STAGE_CHUNKS,
+    MERGE_THREADS,
+    MERGE_VECS,
     WIN,
     i32_to_u32,
     merge_geometry,
@@ -125,24 +126,23 @@ def test_ref_matches_numpy_on_edge_cases(name):
 
 @pytest.mark.parametrize("rows,nch,capw_pad", [
     (68, 215, 5888), (68, 223, 5888), (135, 223, 16384), (7, 50, 1024),
-    (3, 9, 256), (1, 3, 256), (2, 1, 256), (2, 2 * STAGE_CHUNKS + 5, 8192)])
+    (3, 9, 256), (1, 3, 256), (2, 1, 256), (2, 517, 8192)])
 def test_merge_geometry_invariants(rows, nch, capw_pad):
-    """One CTA per row: its bulk copies take every chunk of the row
-    exactly once and its shared memory holds every output word below
-    capw_pad in whole 16-byte vectors; the shared memory fits a CTA."""
+    """One CTA per row: its threads load every partial vector of the row
+    exactly once, as the kernel indexes them, and its shared memory holds
+    every output word below capw_pad in whole 16-byte vectors and fits
+    one CTA."""
     g = merge_geometry(rows, nch, capw_pad)
-    assert g.grid == rows
-    taken = np.zeros(nch, np.int64)
-    for s in range(g.stages):
-        taken[s * g.stage_chunks:min((s + 1) * g.stage_chunks, nch)] += 1
-    assert (taken == 1).all()
-    assert 1 <= g.stage_chunks <= STAGE_CHUNKS
-    row = g.smem_bytes - g.stage_chunks * WIN * 4 - 16 - nch * 4
-    assert row % 16 == 0 and capw_pad * 4 <= row < capw_pad * 4 + 16
+    assert g.grid == rows and g.threads == MERGE_THREADS
+    j, k, t = np.meshgrid(np.arange(g.rounds), np.arange(MERGE_VECS),
+                          np.arange(g.threads), indexing="ij")
+    v = (j * MERGE_VECS + k) * g.threads + t
+    nv = nch * (WIN // 4)
+    assert np.array_equal(np.sort(v[v < nv]), np.arange(nv))
+    assert (v[-1] < nv).any() or nv == 0           # no idle round
+    assert g.smem_bytes % 16 == 0
+    assert capw_pad * 4 <= g.smem_bytes < capw_pad * 4 + 16
     assert g.smem_bytes <= 232448
-    # every chunk of the real 1080p frames comes in one bulk copy
-    if capw_pad == 5888:
-        assert g.stages == 1
 
 
 def test_wrapper_rejects_misaligned_partials():
