@@ -14,10 +14,9 @@ csrc/merge_windows.cu (one CTA per row, its loads all in flight at
 once; launch geometry from `merge_geometry`), with `merge_windows_ref`
 as its plain PyTorch version. Both are an exact scatter-add mod 2^32
 that drops words at or past capw_pad (and before 0); on every row
-whose words reach the bitstream (no chunk
-wider than WIN-1 words, total within capacity) that equals
-`tree_merge`. Neither wraps words around a 128-lane window as the
-Pallas kernel does.
+whose words reach the bitstream (no chunk wider than WIN-1 words,
+total within capacity) that equals `tree_merge`. Neither wraps words
+around a 128-lane window as the Pallas kernel does.
 
 Words travel as int32 tensors holding uint32 bit patterns (torch's
 uint32 lacks shifts on the CPU); `u32_to_i32` / `i32_to_u32` convert
@@ -70,21 +69,19 @@ def merge_windows_ref(sw: torch.Tensor, partials: torch.Tensor,
 class MergeGeometry(NamedTuple):
     """Launch geometry of the K1 kernel for one (rows, nch, capw_pad)."""
     grid: int            # CTAs: one per row
-    threads: int         # threads per CTA
-    rounds: int          # load rounds of threads * MERGE_VECS vectors
+    rounds: int          # load rounds of MERGE_THREADS * MERGE_VECS vectors
     smem_bytes: int      # dynamic shared memory per CTA
 
 
 def merge_geometry(rows: int, nch: int, capw_pad: int) -> MergeGeometry:
     """The CTA of row r takes all of the row's nch * 16 partial vectors
-    (thread t of round j loads vectors j*T*V + k*T + t, k < V, with T
-    threads and V = MERGE_VECS) and owns all of its capw_pad words,
-    held in shared memory as whole 16-byte vectors
+    (thread t of round j loads vectors j*T*V + k*T + t, k < V, with
+    T = MERGE_THREADS and V = MERGE_VECS) and owns all of its capw_pad
+    words, held in shared memory as whole 16-byte vectors
     (csrc/merge_windows.cu)."""
     per_round = MERGE_THREADS * MERGE_VECS
     rounds = max(1, -(-nch * (WIN // 4) // per_round))
-    return MergeGeometry(rows, MERGE_THREADS, rounds,
-                         -(-capw_pad // 4) * 16)
+    return MergeGeometry(rows, rounds, -(-capw_pad // 4) * 16)
 
 
 def _check(sw: torch.Tensor, partials: torch.Tensor,
@@ -105,9 +102,8 @@ def _check(sw: torch.Tensor, partials: torch.Tensor,
         raise ValueError(f"capw_pad={capw_pad}: need at least one word")
     geo = merge_geometry(*sw.shape, capw_pad)
     if geo.smem_bytes > MAX_SMEM_BYTES:
-        raise ValueError(f"capw_pad={capw_pad}, nch={sw.shape[1]} needs "
-                         f"{geo.smem_bytes} bytes of shared memory per CTA; "
-                         f"one CTA has {MAX_SMEM_BYTES}")
+        raise ValueError(f"capw_pad={capw_pad} words do not fit one "
+                         f"CTA's shared memory ({MAX_SMEM_BYTES} bytes)")
     # the kernel loads partials as 16-byte vectors
     if partials.data_ptr() % 16:
         raise ValueError("merge_windows needs partials 16-byte aligned")

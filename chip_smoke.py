@@ -84,13 +84,12 @@ def device_ms(fn, iters: int, windows: int = 5, warmup: int = 5,
     time_cuda, host launch gaps do not count.
 
     Every window must record the same whole number of kernel events per
-    call. The profiler sometimes loses events (on an H100, one window
-    of 200 calls recorded 199 kernels, another none): a window with
-    fewer events than the most any window recorded, or none, is set
-    aside (`dropped_windows`) and another is taken. The check fails
-    unless `windows` windows agree within `max_windows`, or if no
-    window records a kernel. Returns the median of the agreeing
-    windows, their [min, max] and the kernel events per call."""
+    call. The profiler sometimes loses events, some of a window's or
+    all of them: a window with fewer events than the most any window
+    recorded is set aside (`dropped_windows`) and another is taken. The
+    check fails if no window records a kernel, or unless `windows`
+    windows agree within `max_windows`. Returns the median of the
+    agreeing windows, their [min, max] and the kernel events per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

@@ -133,10 +133,10 @@ def test_merge_geometry_invariants(rows, nch, capw_pad):
     every output word below capw_pad in whole 16-byte vectors and fits
     one CTA."""
     g = merge_geometry(rows, nch, capw_pad)
-    assert g.grid == rows and g.threads == MERGE_THREADS
+    assert g.grid == rows
     j, k, t = np.meshgrid(np.arange(g.rounds), np.arange(MERGE_VECS),
-                          np.arange(g.threads), indexing="ij")
-    v = (j * MERGE_VECS + k) * g.threads + t
+                          np.arange(MERGE_THREADS), indexing="ij")
+    v = (j * MERGE_VECS + k) * MERGE_THREADS + t
     nv = nch * (WIN // 4)
     assert np.array_equal(np.sort(v[v < nv]), np.arange(nv))
     assert (v[-1] < nv).any() or nv == 0           # no idle round
