@@ -5,12 +5,16 @@ against it (equal arrays, byte-identical bitstreams). It imports torch
 and numpy only: never jax, never anything of ``ceracoder_tpu``.
 
 - ``codec/``   H.264 syntax, host CAVLC (exact fallback), the device
-               CAVLC bit-packer and the ``H264Encoder`` (CAVLC only).
-- ``ops/``     device compute: transforms, intra, inter, deblocking,
-               and the window merge (``ops/bitpack.py``) whose CUDA
-               kernel lives in ``csrc/merge_windows.cu``.
+               CAVLC bit-packer and the ``H264Encoder`` (CAVLC only);
+               HEVC syntax, the native entropy binding and the
+               ``H265DeviceEncoder`` (IDR + low-delay P run path).
+- ``ops/``     device compute: H.264 transforms, intra, inter,
+               deblocking, and the window merge (``ops/bitpack.py``)
+               whose CUDA kernel lives in ``csrc/merge_windows.cu``;
+               the HEVC row-slice compute (``ops/h265.py``).
 - ``app/``     the device test-pattern source.
-- ``utils/``   device resolution and the kernel build.
+- ``utils/``   device resolution, the kernel build and the native
+               entropy library's build.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

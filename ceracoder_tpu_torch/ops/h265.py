@@ -1,0 +1,1059 @@
+"""HEVC row-slice compute on the device (torch): prediction,
+transforms, quantization, motion search and compensation, deblocking,
+level compaction and the packed transfer rows.
+
+Port of the IDR + low-delay-P run path of ceracoder_tpu/ops/h265.py.
+Every array equals the JAX function's (tests/test_torch_h265_ops.py);
+the native entropy stage (codec/h265/rowslice.py) turns them into the
+bitstream. The codec is integer-exact, and so is every op here:
+
+- CUDA has no integer matmul, and a float32 product rounds above 2^24,
+  so every matrix product (transforms, Hadamard SATD, the 8-tap qpel
+  filters) runs as a float64 matmul of integers (`_imatmul`), exact
+  below 2^53. The largest sums here are about 2^26.
+- The JAX code's TPU shapes are dropped where the GPU has a direct
+  form with the same outputs: the bf16 limb matmuls, the float32
+  angular einsum (an integer two-tap gather here), the gather-free
+  window canvases and select chains (indexed loads here), the float32
+  column-sum dot of the coarse search (an integer reshape-sum), the
+  lax.scan plumbing (Python loops) and the three-level compaction (one
+  prefix sum).
+- Ties keep the JAX order: the first minimum wins (`_argmin_first`),
+  over the same candidate tables in the same order.
+- Per-CU tensors are CU-leading, (nch, ncw, ...), where the JAX code
+  keeps the CU grid trailing for the TPU's lanes.
+- QPs are host ints: the port runs frame by frame.
+
+Not ported here (later slices): SAO, the inter TU split, B frames and
+the legacy whole-frame motion search helpers.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+from ceracoder_tpu_torch.codec.h265.rowslice import (
+    INTRA_BIAS_DEN,
+    INTRA_BIAS_NUM,
+)
+from ceracoder_tpu_torch.codec.h265.tables import (
+    BETA_TABLE,
+    CHROMA_FILTER,
+    CHROMA_SCALE,
+    INV_QUANT_SCALES,
+    LUMA_FILTER,
+    QUANT_SCALES,
+    T8,
+    T16,
+    TC_TABLE,
+)
+
+CTB = 16
+I32 = torch.int32
+
+# candidate modes in decision order: planar, DC, hor, ver, then the
+# left-only angular modes 2..9
+_MODES = np.array([0, 1, 10, 26, 2, 3, 4, 5, 6, 7, 8, 9], np.int32)
+_ANGLES = (32, 26, 21, 17, 13, 9, 5, 2)        # modes 2..9 (Table 8-5)
+
+CHROMA_PAD = 8 // 2 + 2
+LUMA_SRC_PAD = 8 + 1 + 4         # qpel MVs floor to -9; 8-tap reach 4
+
+# sub-pel refinement candidates (order = tie order)
+_SUB_DY = np.array([0, 0, 0, -1, 1, -1, -1, 1, 1], np.int32)
+_SUB_DX = np.array([0, -1, 1, 0, 0, -1, 1, -1, 1], np.int32)
+
+COARSE_RANGE = 4                 # half-res exhaustive range (full +-8)
+MV_FULL_MAX = 8                  # |full-pel MV| bound after refine
+# center-outward coarse offsets (order = tie order; ties prefer the
+# shorter MV)
+_C_OFFS = sorted(((dy, dx)
+                  for dy in range(-COARSE_RANGE, COARSE_RANGE + 1)
+                  for dx in range(-COARSE_RANGE, COARSE_RANGE + 1)),
+                 key=lambda o: (abs(o[0]) + abs(o[1]), abs(o[0])))
+_C_DY = np.array([o[0] for o in _C_OFFS], np.int32)
+_C_DX = np.array([o[1] for o in _C_OFFS], np.int32)
+
+WIN_L = 26                       # luma window (covers +-1 refine+qpel)
+WIN_C = 11                       # chroma window (8 + 4-tap reach)
+
+LEVEL_CHUNK = 6144       # sparse-level entries in chunk 0 of a packed row
+
+
+def _untimed(name: str, fn):
+    """The default stage hook: runs fn(). A profiler passes its own
+    hook(name, fn), which times each named stage of the encoder's code
+    (profile_hevc.py)."""
+    return fn()
+
+
+def _band(taps: np.ndarray, n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) matrix M with M[o + k, o] = taps[k]: x @ M applies
+    the filter along x's last axis (output o reads inputs o..o+7)."""
+    m = np.zeros((n_in, n_out), np.float64)
+    for o in range(n_out):
+        m[o:o + len(taps), o] = taps
+    return m
+
+
+@functools.lru_cache(maxsize=None)
+def _consts(device: torch.device) -> dict:
+    """Constant tables on `device`, built once per device."""
+    h8 = np.array([[1]])
+    while h8.shape[0] < 8:
+        h8 = np.block([[h8, h8], [h8, -h8]])
+    lf = LUMA_FILTER.astype(np.float64)
+    hmat = np.stack([_band(lf[f], 24, 17) for f in range(4)])
+    f64 = functools.partial(torch.tensor, dtype=torch.float64,
+                            device=device)
+    i32 = functools.partial(torch.tensor, dtype=I32, device=device)
+    i64 = functools.partial(torch.tensor, dtype=torch.int64, device=device)
+    return {
+        "t16": f64(T16.astype(np.float64)),
+        "t8": f64(T8.astype(np.float64)),
+        "h8": f64(h8.astype(np.float64)),
+        "qpel_h": f64(hmat),                          # (4, 24, 17)
+        "qpel_v": f64(hmat.transpose(0, 2, 1).copy()),  # (4, 17, 24)
+        "chroma_filter": i32(CHROMA_FILTER.astype(np.int32)),
+        "modes": i32(_MODES),
+        "sub_dy": i64(_SUB_DY), "sub_dx": i64(_SUB_DX),
+        "c_dy": i64(_C_DY), "c_dx": i64(_C_DX),
+    }
+
+
+def _imatmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact a @ b of integer-valued tensors as int32: a float64 matmul
+    (CUDA has no integer matmul; float64 is exact below 2^53, and no
+    product on the codec path comes near)."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(I32)
+
+
+def _argmin_first(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Index of the first minimum of integer x along dim (jnp.argmin's
+    tie rule), from packed (value << 8 | index) keys, so that no
+    device's reduction order can pick another of equal minima."""
+    m = x.shape[dim]
+    if m > 256:
+        raise ValueError(f"_argmin_first: {m} candidates, at most 256")
+    shape = [1] * x.ndim
+    shape[dim] = m
+    idx = torch.arange(m, device=x.device).view(shape)
+    return (((x.to(torch.int64) << 8) | idx).amin(dim) & 255)
+
+
+def _pad_edge(x: torch.Tensor, top: int, bottom: int, left: int,
+              right: int) -> torch.Tensor:
+    """Edge-replicating pad of a 2-D plane of any dtype (jnp.pad's
+    mode="edge")."""
+    h, w = x.shape
+    rows = torch.arange(-top, h + bottom, device=x.device).clamp(0, h - 1)
+    cols = torch.arange(-left, w + right, device=x.device).clamp(0, w - 1)
+    return x.index_select(0, rows).index_select(1, cols)
+
+
+# ---------------------------------------------------------------------------
+# transforms / quant (spec 8.6; int32 values, exact float64 products)
+# ---------------------------------------------------------------------------
+
+def _fwd_transform(res, t, log2n: int):
+    """res (..., n, n) int32 -> coefficients; t the (n, n) float64
+    transform matrix."""
+    s1 = log2n - 1
+    s2 = log2n + 6
+    a = (_imatmul(t, res) + (1 << (s1 - 1))) >> s1
+    return (_imatmul(a, t.T) + (1 << (s2 - 1))) >> s2
+
+
+def _inv_transform(coef, t, log2n: int):
+    """coef (dequantized, clipped to +-32767) -> residual."""
+    a = ((_imatmul(t.T, coef) + 64) >> 7).clamp(-32768, 32767)
+    return ((_imatmul(a, t) + 2048) >> 12).clamp(-32768, 32767)
+
+
+def _quantize(coef, qp: int, log2n: int, intra: bool = True):
+    qbits = 21 + qp // 6 - log2n
+    scale = int(QUANT_SCALES[qp % 6])
+    # HM rounding offsets: 171/512 intra, 85/512 inter
+    off = (171 if intra else 85) << (qbits - 9)
+    level = (coef.abs() * scale + off) >> qbits
+    return torch.sign(coef) * level
+
+
+def _dequantize(level, qp: int, log2n: int):
+    bd_shift = log2n + 3
+    scale = int(INV_QUANT_SCALES[qp % 6]) * 16
+    d = (level * (scale << (qp // 6)) + (1 << (bd_shift - 1))) >> bd_shift
+    return d.clamp(-32768, 32767)
+
+
+def _code_tu(src, pred, qp: int, t, log2n: int, intra: bool = True):
+    """Quantized levels + reconstruction for one batch of TUs."""
+    lv = _quantize(_fwd_transform(src - pred, t, log2n), qp, log2n,
+                   intra=intra)
+    cbf = (lv != 0).flatten(-2).any(-1)
+    rec_res = _inv_transform(_dequantize(lv, qp, log2n), t, log2n)
+    rec = (pred + torch.where(cbf[..., None, None], rec_res, 0)).clamp(0, 255)
+    return lv, rec
+
+
+# ---------------------------------------------------------------------------
+# 8x8 Hadamard SATD
+# ---------------------------------------------------------------------------
+
+def _satd8_blocks(d):
+    """Sum of the four 8x8 Hadamard SATDs of each 16x16 block:
+    d (..., 16, 16) int32 with |d| <= 255 -> (...) int32. Each 8x8 sum
+    of |H8 d H8| is shifted right by 2 before the four are added (the
+    JAX butterflies `_satd8_blocks_bf` / `_satd8_t` give the same
+    values: the abs-sum does not depend on the order of H8's rows)."""
+    lead = d.shape[:-2]
+    x = d.reshape(*lead, 2, 8, 2, 8).transpose(-3, -2)   # (..., 2, 2, 8, 8)
+    h8 = _consts(d.device)["h8"]
+    y = torch.matmul(torch.matmul(h8, x.to(torch.float64)), h8)
+    s8 = y.abs().sum((-1, -2)).to(I32) >> 2              # (..., 2, 2)
+    return s8.sum((-1, -2), dtype=I32)
+
+
+def _satd8_frame(diff):
+    """Per-16x16-CU SATD of a (H, W) int32 difference plane."""
+    return _satd8_blocks(_blocks(diff, CTB))
+
+
+# ---------------------------------------------------------------------------
+# intra prediction from a left column (row-slice reference reduction)
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _angular_tables(n: int, modes: tuple, device: torch.device):
+    """Two-tap tables of the angular modes (spec 8.4.4.2.6): output
+    (y, x) of angle a is ((32 - fact) * ref[i0] + fact * ref[i0 + 1]
+    + 16) >> 5 with i0 = y + ((x + 1) * a >> 5), fact = (x + 1) * a & 31.
+    Returns i0 (M, n, n) int64 and fact (M, 1, n) int32."""
+    a = np.array(modes, np.int64)[:, None]
+    xs = np.arange(1, n + 1, dtype=np.int64)[None, :]
+    idx, fact = (xs * a) >> 5, (xs * a) & 31                 # (M, n)
+    i0 = np.arange(n)[None, :, None] + idx[:, None, :]       # (M, n, n)
+    return (torch.tensor(i0, device=device),
+            torch.tensor(fact[:, None, :].astype(np.int32), device=device))
+
+
+def _intra_preds(left, n: int, luma: bool):
+    """All candidate predictions from the left recon column.
+
+    left: (R, n) int32. In the row-slice schedule the only reference is
+    the left column; corner == left[0], the top row and below-left
+    substitute to corner / left[-1] (spec 8.4.4.2.2). Returns
+    (R, 12, n, n) in `_MODES` order."""
+    r = left.shape[0]
+    log2n = n.bit_length() - 1
+    corner = left[:, :1]                                  # (R, 1)
+    xs = torch.arange(n, dtype=I32, device=left.device)
+    left2 = torch.cat([left, left[:, -1:].expand(r, n)], dim=1)
+
+    # planar (spec 8.4.4.2.6); luma n>=8 smooths the refs (8.4.4.2.3):
+    # with top == corner everywhere only the left column changes
+    if luma and n >= 8:
+        ext = torch.cat([corner, left2], dim=1)           # (R, 2n+1)
+        fl = (ext[:, :-2] + 2 * ext[:, 1:-1] + ext[:, 2:] + 2) >> 2
+        fl = torch.cat([fl, left2[:, -1:]], dim=1)
+    else:
+        fl = left2
+    pl_left = fl[:, :n]
+    bl = fl[:, n:n + 1]                                   # p[-1][nTbS]
+    planar = ((n - 1 - xs)[None, None, :] * pl_left[:, :, None]
+              + (xs + 1)[None, None, :] * corner[:, :, None]
+              + (n - 1 - xs)[None, :, None] * corner[:, :, None]
+              + (xs + 1)[None, :, None] * bl[:, :, None]
+              + n) >> (log2n + 1)
+
+    # DC (8.4.4.2.5): top sums to n * corner
+    dc = (left.sum(1, keepdim=True, dtype=I32) + n * corner + n) >> (log2n + 1)
+    dcp = dc[:, :, None].expand(r, n, n)
+    if luma and n < 32:
+        dcp = dcp.clone()
+        dcp[:, 0, :] = (corner + 3 * dc + 2) >> 2         # top[x] == corner
+        dcp[:, :, 0] = (left + 3 * dc + 2) >> 2
+        dcp[:, 0, 0] = ((left[:, :1] + 2 * dc + corner + 2) >> 2)[:, 0]
+
+    # horizontal (mode 10): rows replicate left (the luma row-0 filter
+    # adds (top - corner) >> 1 == 0)
+    hor = left[:, :, None].expand(r, n, n)
+
+    # vertical (mode 26): columns replicate top == corner; luma col-0
+    # filter: clip(corner + ((left - corner) >> 1))
+    ver = corner[:, :, None].expand(r, n, n)
+    if luma and n < 32:
+        ver = ver.clone()
+        ver[:, :, 0] = (corner + ((left - corner) >> 1)).clamp(0, 255)
+
+    # angular 2..9 (horizontal class: only the left reference takes
+    # part). Luma 16x16 smooths the reference for modes 2..8 (minDist
+    # > 1), not for mode 9; chroma never.
+    if luma and n >= 8:
+        groups = ((_ANGLES[:7], fl), (_ANGLES[7:], left2))
+    else:
+        groups = ((_ANGLES, left2),)
+    preds = [torch.stack([planar, dcp, hor, ver], dim=1)]
+    for modes, base_ref in groups:
+        i0, fact = _angular_tables(n, modes, left.device)
+        refl = torch.cat([base_ref, base_ref[:, -1:]], dim=1)  # (R, 2n+1)
+        preds.append(((32 - fact) * refl[:, i0] + fact * refl[:, i0 + 1]
+                      + 16) >> 5)
+    return torch.cat(preds, dim=1)
+
+
+def _select_cand(preds, midx):
+    """Each row's winning candidate: preds (R, M, n, n), midx (R,)."""
+    return preds[torch.arange(preds.shape[0], device=preds.device), midx]
+
+
+# ---------------------------------------------------------------------------
+# motion search / compensation
+# ---------------------------------------------------------------------------
+
+def _down2_dev(x):
+    """Half-resolution image: 2x2 mean with +2 >> 2 rounding."""
+    h, w = x.shape
+    return (x.reshape(h // 2, 2, w // 2, 2).sum((1, 3), dtype=I32) + 2) >> 2
+
+
+def _blocks(x, n: int):
+    """(H, W) -> (nch, ncw, n, n) row-major tiles."""
+    h, w = x.shape
+    return x.reshape(h // n, n, w // n, n).transpose(1, 2)
+
+
+def _unblocks(b):
+    """(nch, ncw, n, n) -> (H, W)."""
+    nch, ncw, n, _ = b.shape
+    return b.transpose(1, 2).reshape(nch * n, ncw * n)
+
+
+def _coarse_search_dev(cur_h, ref_h_pad):
+    """Exhaustive +-4 SAD over 8x8 blocks at half resolution, all 81
+    offsets at once; the first minimum in `_C_OFFS` order wins (the
+    JAX (sad << 7 | rank) keys). cur_h (h, w); ref_h_pad padded by
+    COARSE_RANGE. Returns (h/8, w/8, 2) int32 offsets."""
+    h, w = cur_h.shape
+    c = _consts(cur_h.device)
+    pad = COARSE_RANGE
+    rows = torch.arange(h, device=cur_h.device) + pad + c["c_dy"][:, None]
+    cols = torch.arange(w, device=cur_h.device) + pad + c["c_dx"][:, None]
+    shifted = ref_h_pad[rows[:, :, None], cols[:, None, :]]   # (81, h, w)
+    sad = (cur_h - shifted).abs().reshape(-1, h // 8, 8, w // 8, 8).sum(
+        (2, 4), dtype=I32)                                    # (81, nbh, nbw)
+    rank = _argmin_first(sad, 0)
+    return torch.stack([c["c_dy"][rank], c["c_dx"][rank]], dim=-1).to(I32)
+
+
+def _window_canvas_dev(ref_pad, off_yx, blk: int, win: int, orig: int,
+                       pad: int):
+    """Per-CU windows by indexed loads:
+
+      E[cy, cx, wy, wx] =
+        ref_pad[cy*blk + off_y + wy + orig + pad,
+                cx*blk + off_x + wx + orig + pad]
+
+    off_yx (nch, ncw, 2). The JAX canvases (`_window_canvas_dev`,
+    `_window_canvas_t`) build the same windows without gathers."""
+    nch, ncw = off_yx.shape[:2]
+    dev = ref_pad.device
+    ar = torch.arange(win, device=dev)
+    r0 = (torch.arange(nch, device=dev)[:, None] * blk + off_yx[..., 0]
+          + orig + pad)
+    c0 = (torch.arange(ncw, device=dev)[None, :] * blk + off_yx[..., 1]
+          + orig + pad)
+    return ref_pad[(r0[..., None] + ar)[..., :, None],
+                   (c0[..., None] + ar)[..., None, :]]
+
+
+def _crop(x, oy, ox, size: int):
+    """Per-element crops x[..., oy:oy+size, ox:ox+size] of x (..., H, W)
+    at integer offset tensors oy, ox of shape x.shape[:-2]."""
+    ar = torch.arange(size, device=x.device)
+    rows = (oy[..., None] + ar)[..., :, None].expand(*oy.shape, size,
+                                                     x.shape[-1])
+    x = torch.gather(x, -2, rows)
+    cols = (ox[..., None] + ar)[..., None, :].expand(*ox.shape, size, size)
+    return torch.gather(x, -1, cols)
+
+
+def _fullpel_refine_dev(cur_b, e):
+    """+-1 full-pel SAD refine from the window canvas. cur_b
+    (nch, ncw, 16, 16); e (nch, ncw, 26, 26) with the full-pel block
+    at rows/cols [5:21]. Tie order = `_SUB_DY`/`_SUB_DX` (earlier
+    wins). Returns (d_yx, w24): the chosen offset and the 24x24 window
+    re-based at it (origin -4 relative to the refined MV)."""
+    c = _consts(cur_b.device)
+    blk = torch.stack([e[..., 5 + int(dy):21 + int(dy), 5 + int(dx):21 + int(dx)]
+                       for dy, dx in zip(_SUB_DY, _SUB_DX)])
+    sad = (cur_b - blk).abs().sum((-1, -2), dtype=I32)      # (9, nch, ncw)
+    rank = _argmin_first(sad, 0)
+    dy, dx = c["sub_dy"][rank], c["sub_dx"][rank]
+    return torch.stack([dy, dx], dim=-1).to(I32), _crop(e, 1 + dy, 1 + dx, 24)
+
+
+def _window_phases14(w24):
+    """All 16 qpel phases of each 24x24 window at 14-bit intermediate
+    precision (spec 8.5.4.2.2.1; 8-tap DCT-IF, horizontal then
+    vertical, acc >> 6). w24 (..., 24, 24) -> (..., 16, 17, 17) int32,
+    phase index fy*4 + fx; output column c is integer offset c - 1
+    relative to the window's full-pel MV. Both filter passes are exact
+    float64 products with banded tap matrices (sums below 2^22)."""
+    c = _consts(w24.device)
+    tmp = torch.matmul(w24.to(torch.float64)[..., None, :, :],
+                       c["qpel_h"])                          # (..., 4, 24, 17)
+    acc = torch.matmul(c["qpel_v"][:, None], tmp[..., None, :, :, :])
+    acc = acc.to(I32) >> 6                                   # (..., 4, 4, 17, 17)
+    return acc.flatten(-4, -3)
+
+
+def _pred8_from14(p14):
+    return ((p14 + 32) >> 6).clamp(0, 255)
+
+
+def _phase_blocks(ph14, fy, fx):
+    """16x16 prediction blocks at qpel offsets (fy, fx) (integer
+    tensors shaped like the CU grid, or with extra leading candidate
+    dims) from the phase tensor ph14 (nch, ncw, 16, 17, 17)."""
+    p = ((fy & 3) << 2) | (fx & 3)
+    grid = ph14.shape[:-3]
+    lead = p.shape[:p.ndim - len(grid)]
+    ph = torch.gather(ph14.expand(*lead, *ph14.shape), -3,
+                      p[..., None, None, None].expand(*p.shape, 1, 17, 17))
+    return _crop(ph[..., 0, :, :], (fy >> 2) + 1, (fx >> 2) + 1, 16)
+
+
+def _subpel_refine_local(cur_b, ph14):
+    """Half- then quarter-pel SATD refinement on the per-CU phase
+    tensors: 9 half-pel candidates, then the 5 plus-shape quarter-pel
+    ones around the winner; strictly better wins, earlier candidate on
+    ties. cur_b (nch, ncw, 16, 16); ph14 (nch, ncw, 16, 17, 17). Returns
+    (rel_q, pred14): the chosen qpel offset relative to the window's
+    full-pel MV (components in [-3, 3]) and the winning 14-bit
+    prediction blocks (nch, ncw, 16, 16)."""
+    c = _consts(cur_b.device)
+    grid = cur_b.shape[:-2]
+    cand = (len(_SUB_DY),) + (1,) * len(grid)
+    half = _phase_blocks(ph14, (2 * c["sub_dy"]).view(cand).expand(-1, *grid),
+                         (2 * c["sub_dx"]).view(cand).expand(-1, *grid))
+    rank1 = _argmin_first(_satd8_blocks(cur_b - _pred8_from14(half)), 0)
+    hy, hx = 2 * c["sub_dy"][rank1], 2 * c["sub_dx"][rank1]
+    q5 = (5,) + (1,) * len(grid)
+    fy = hy + c["sub_dy"][:5].view(q5)
+    fx = hx + c["sub_dx"][:5].view(q5)
+    quarter = _phase_blocks(ph14, fy, fx)                    # (5, ..., 16, 16)
+    rank2 = _argmin_first(_satd8_blocks(cur_b - _pred8_from14(quarter)), 0)
+    rel = torch.stack([hy + c["sub_dy"][rank2], hx + c["sub_dx"][rank2]],
+                      dim=-1).to(I32)
+    pred14 = torch.gather(
+        quarter, 0, rank2[None, ..., None, None].expand(1, *grid, 16, 16))[0]
+    return rel, pred14
+
+
+def _motion_luma_dev(cur, ref_pad, pad: int, stage=_untimed):
+    """Full luma motion pipeline: hierarchical full-pel search +
+    window-local subpel refine and MC. cur (H, W) int32; ref_pad int32
+    padded by `pad` >= LUMA_SRC_PAD on every side. Returns
+    (mv_q (nch, ncw, 2) int32, pred14 blocks (nch, ncw, 16, 16))."""
+    h, w = cur.shape
+    cur_h, ref_h_pad = stage("down2", lambda: (
+        _down2_dev(cur).to(torch.int16),
+        _down2_dev(ref_pad[pad - 8:pad + h + 8, pad - 8:pad + w + 8])
+        .to(torch.int16)))                                   # half-res pad 4
+    mvh = stage("coarse_search", lambda: _coarse_search_dev(cur_h, ref_h_pad))
+    mv0 = (2 * mvh).clamp(-(MV_FULL_MAX - 1), MV_FULL_MAX - 1)
+    e = stage("window_canvas", lambda: _window_canvas_dev(
+        ref_pad, mv0, blk=CTB, win=WIN_L, orig=-5, pad=pad))
+    cur_b = _blocks(cur, CTB)
+    d_yx, w24 = stage("fullpel_refine", lambda: _fullpel_refine_dev(cur_b, e))
+    ph14 = stage("qpel_phases", lambda: _window_phases14(w24))
+    rel_q, pred14 = stage("subpel_refine",
+                          lambda: _subpel_refine_local(cur_b, ph14))
+    return 4 * (mv0 + d_yx) + rel_q, pred14
+
+
+def _mc_chroma_window(ref_c_pad, mv_q, pad: int):
+    """Chroma MC from per-CU windows: 4-tap eighth-sample filters
+    (spec 8.5.4.2.2.2). ref_c_pad int32 padded by `pad` >= CHROMA_PAD.
+    Returns the (hc, wc) prediction plane."""
+    oy = mv_q[..., 0] >> 3                                   # in [-5, 4]
+    ox = mv_q[..., 1] >> 3
+    e = _window_canvas_dev(ref_c_pad, torch.stack([oy, ox], dim=-1),
+                           blk=CTB // 2, win=WIN_C, orig=-1, pad=pad)
+    cf = _consts(mv_q.device)["chroma_filter"]
+    ty = cf[(mv_q[..., 0] & 7).long()]                       # (nch, ncw, 4)
+    tx = cf[(mv_q[..., 1] & 7).long()]
+    n = CTB // 2
+    tmp = sum(tx[:, :, None, None, m] * e[..., :, m:m + n]
+              for m in range(4))                             # (nch,ncw,11,8)
+    acc = sum(ty[:, :, None, None, k] * tmp[..., k:k + n, :]
+              for k in range(4))                             # (nch,ncw,8,8)
+    return _unblocks(((acc + 2048) >> 12).clamp(0, 255))
+
+
+# ---------------------------------------------------------------------------
+# in-loop deblocking (spec 8.7.2)
+# ---------------------------------------------------------------------------
+
+def _edge_bs_dev(is_intra, cbf_l, mv):
+    """Per-CU-edge strengths (vertical edges, horizontal edges)."""
+    def pair(ia, ib, ca, cb, ma, mb):
+        diff = ((ma - mb).abs() >= 4).any(-1)
+        return torch.where(ia | ib, 2,
+                           torch.where(ca | cb | diff, 1, 0)).to(I32)
+
+    bs_v = pair(is_intra[:, :-1], is_intra[:, 1:], cbf_l[:, :-1],
+                cbf_l[:, 1:], mv[:, :-1], mv[:, 1:])
+    bs_h = pair(is_intra[:-1, :], is_intra[1:, :], cbf_l[:-1, :],
+                cbf_l[1:, :], mv[:-1, :], mv[1:, :])
+    return bs_v, bs_h
+
+
+def _luma_edge_filter(p, q, bs, qp: int):
+    """p: (E, L, 4) p3..p0, q: (E, L, 4) q0..q3, bs: (E, L); L a
+    multiple of 4 (decision groups). Spec 8.7.2.5.3 / 8.7.2.5.7."""
+    e, li, _ = p.shape
+    beta = int(BETA_TABLE[min(max(qp, 0), 51)])
+    tc_bs1 = int(TC_TABLE[min(max(qp, 0), 53)])
+    tc_bs2 = int(TC_TABLE[min(max(qp + 2, 0), 53)])
+    tc_all = torch.where(bs == 2, tc_bs2, torch.where(bs == 1, tc_bs1, 0)
+                         ).to(p.dtype)
+
+    p3, p2, p1, p0 = p.unbind(-1)
+    q0, q1, q2, q3 = q.unbind(-1)
+    dp = (p2 - 2 * p1 + p0).abs()
+    dq = (q2 - 2 * q1 + q0).abs()
+
+    g = li // 4
+    dp4 = dp.reshape(e, g, 4)
+    dq4 = dq.reshape(e, g, 4)
+    d = dp4[..., 0] + dq4[..., 0] + dp4[..., 3] + dq4[..., 3]
+    tc_g = tc_all.reshape(e, g, 4)[..., 0]
+    bs_g = bs.reshape(e, g, 4)[..., 0]
+    filt = (d < beta) & (bs_g > 0)
+
+    def dsam(i):
+        dpq = dp4[..., i] + dq4[..., i]
+        sap = (p3 - p0).abs().reshape(e, g, 4)[..., i]
+        saq = (q0 - q3).abs().reshape(e, g, 4)[..., i]
+        spq = (p0 - q0).abs().reshape(e, g, 4)[..., i]
+        return ((2 * dpq < (beta >> 2))
+                & (sap + saq < (beta >> 3))
+                & (spq < ((5 * tc_g + 1) >> 1)))
+
+    strong = filt & dsam(0) & dsam(3)
+
+    def rep(a):
+        return a.repeat_interleave(4, dim=1)
+
+    filt_l, strong_l, tc = rep(filt), rep(strong), rep(tc_g)
+
+    def c2(x, ref):
+        return torch.minimum(torch.maximum(x, ref - 2 * tc), ref + 2 * tc)
+
+    sp0 = c2((p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3, p0)
+    sp1 = c2((p2 + p1 + p0 + q0 + 2) >> 2, p1)
+    sp2 = c2((2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3, p2)
+    sq0 = c2((p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3, q0)
+    sq1 = c2((p0 + q0 + q1 + q2 + 2) >> 2, q1)
+    sq2 = c2((p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3, q2)
+
+    delta = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4
+    wtake = delta.abs() < 10 * tc
+    dlt = torch.minimum(torch.maximum(delta, -tc), tc)
+    wp0 = (p0 + dlt).clamp(0, 255)
+    wq0 = (q0 - dlt).clamp(0, 255)
+    side_th = (beta + (beta >> 1)) >> 3
+    dep = rep(dp4[..., 0] + dp4[..., 3] < side_th)
+    deq = rep(dq4[..., 0] + dq4[..., 3] < side_th)
+    tc2 = tc >> 1
+    dp1v = torch.minimum(torch.maximum(
+        (((p2 + p0 + 1) >> 1) - p1 + dlt) >> 1, -tc2), tc2)
+    wp1 = (p1 + dp1v).clamp(0, 255)
+    dq1v = torch.minimum(torch.maximum(
+        (((q2 + q0 + 1) >> 1) - q1 - dlt) >> 1, -tc2), tc2)
+    wq1 = (q1 + dq1v).clamp(0, 255)
+
+    wk = filt_l & ~strong_l & wtake
+    st = filt_l & strong_l
+    out_p = torch.stack([
+        p3,
+        torch.where(st, sp2, p2),
+        torch.where(st, sp1, torch.where(wk & dep, wp1, p1)),
+        torch.where(st, sp0, torch.where(wk, wp0, p0)),
+    ], dim=-1)
+    out_q = torch.stack([
+        torch.where(st, sq0, torch.where(wk, wq0, q0)),
+        torch.where(st, sq1, torch.where(wk & deq, wq1, q1)),
+        torch.where(st, sq2, q2),
+        q3,
+    ], dim=-1)
+    return out_p, out_q
+
+
+def _chroma_edge_filter(p, q, bs, qp: int):
+    """p: (E, L, 2) p1,p0; q: (E, L, 2) q0,q1; bs == 2 filters
+    (spec 8.7.2.5.5)."""
+    qpc = int(CHROMA_SCALE[min(max(qp, 0), 69)])
+    tc = int(TC_TABLE[min(max(qpc + 2, 0), 53)])
+    p1, p0 = p.unbind(-1)
+    q0, q1 = q.unbind(-1)
+    delta = ((((q0 - p0) << 2) + p1 - q1 + 4) >> 3).clamp(-tc, tc)
+    f = bs == 2
+    out_p = torch.stack(
+        [p1, torch.where(f, (p0 + delta).clamp(0, 255), p0)], dim=-1)
+    out_q = torch.stack(
+        [torch.where(f, (q0 - delta).clamp(0, 255), q0), q1], dim=-1)
+    return out_p, out_q
+
+
+def _nnz8_map_dev(luma_lv, cbf_l, tu_split):
+    """Per-8x8-quadrant luma TB nonzero map (2nch, 2ncw): the quadrant
+    flag for split CUs, the CU's TB flag otherwise."""
+    nch, ncw = cbf_l.shape
+    qz = (luma_lv.reshape(nch, ncw, 2, 8, 2, 8) != 0).any(5).any(3)
+    cu = (cbf_l != 0)[:, :, None, None].expand(nch, ncw, 2, 2)
+    out = torch.where(tu_split[:, :, None, None], qz, cu)
+    return out.transpose(1, 2).reshape(2 * nch, 2 * ncw)
+
+
+def _seg_bs_dev(ii_a, ii_b, mv_a, mv_b, nz_pair):
+    """Per-8-sample-segment luma strengths: per-CU inputs (nch, E),
+    nz_pair per segment (2nch, E); returns (2nch, E)."""
+    ii = (ii_a | ii_b).repeat_interleave(2, dim=0)
+    mvd = ((mv_a - mv_b).abs() >= 4).any(-1).repeat_interleave(2, dim=0)
+    return torch.where(ii, 2, torch.where(nz_pair | mvd, 1, 0)).to(I32)
+
+
+def _deblock_axis(y, u, v, bs, bs_seg, int_bs, qp: int, nblk: int):
+    """Filter all vertical edges of one orientation.
+
+    y: (H, W) with CU edges every 16 columns. bs: (nrow_blocks, E)
+    per-CTB strengths (chroma; constant along the edge), bs_seg:
+    (2*nrow_blocks, E) luma per-8-sample-segment strengths, int_bs:
+    (2*nrow_blocks, nblk) interior TU-edge strengths of split CUs (or
+    None). CU-boundary and interior filters touch disjoint samples (>= 2
+    columns apart), so their order is immaterial."""
+    h, w = y.shape
+    if nblk > 1:
+        yv = y.reshape(h, nblk, CTB).clone()
+        p = yv[:, :-1, CTB - 4:].transpose(0, 1)        # (E, H, 4)
+        q = yv[:, 1:, :4].transpose(0, 1)
+        bs_l = bs_seg.repeat_interleave(8, dim=0).T     # (E, H)
+        fp, fq = _luma_edge_filter(p, q, bs_l, qp)
+        yv[:, :-1, CTB - 4:] = fp.transpose(0, 1)
+        yv[:, 1:, :4] = fq.transpose(0, 1)
+        y = yv.reshape(h, w)
+
+        hc, wc = u.shape
+        nc = CTB // 2
+        bs_c = bs.repeat_interleave(nc, dim=0).T        # (E, Hc)
+        outs = []
+        for plane in (u, v):
+            pv = plane.reshape(hc, nblk, nc).clone()
+            pc = pv[:, :-1, nc - 2:].transpose(0, 1)
+            qc = pv[:, 1:, :2].transpose(0, 1)
+            fpc, fqc = _chroma_edge_filter(pc, qc, bs_c, qp)
+            pv[:, :-1, nc - 2:] = fpc.transpose(0, 1)
+            pv[:, 1:, :2] = fqc.transpose(0, 1)
+            outs.append(pv.reshape(hc, wc))
+        u, v = outs
+    if int_bs is not None:
+        yv = y.reshape(h, nblk, CTB).clone()
+        p = yv[:, :, 4:8].transpose(0, 1)               # (nblk, H, 4)
+        q = yv[:, :, 8:12].transpose(0, 1)
+        bs_i = int_bs.repeat_interleave(8, dim=0).T     # (nblk, H)
+        fp, fq = _luma_edge_filter(p, q, bs_i, qp)
+        yv[:, :, 4:8] = fp.transpose(0, 1)
+        yv[:, :, 8:12] = fq.transpose(0, 1)
+        y = yv.reshape(h, w)
+    return y, u, v
+
+
+def deblock_frame_dev(rec_y, rec_u, rec_v, is_intra, cbf_l, mv, qp: int,
+                      tu_split=None, luma_lv=None):
+    """HEVC deblock post-pass (vertical edges over the whole picture,
+    then horizontal edges on the result). tu_split + luma_lv (both or
+    neither) enable per-quadrant boundary strengths and the interior
+    8-aligned TU edges of split CUs; without them no CU is split: each
+    8x8 quadrant takes its CU's cbf, and the interior pass (which would
+    filter nothing) is skipped. Returns uint8 planes."""
+    y, u, v = (p.to(I32) for p in (rec_y, rec_u, rec_v))
+    h, w = y.shape
+    nch, ncw = h // CTB, w // CTB
+    if tu_split is None:
+        nnz8 = (cbf_l != 0).repeat_interleave(2, 0).repeat_interleave(2, 1)
+    else:
+        nnz8 = _nnz8_map_dev(luma_lv, cbf_l, tu_split)
+    bs_v, bs_h = _edge_bs_dev(is_intra, cbf_l, mv)
+
+    def seg_and_int(ii, mvx, nnz8x, splitx, n):
+        if n > 1:
+            segs = _seg_bs_dev(ii[:, :-1], ii[:, 1:], mvx[:, :-1],
+                               mvx[:, 1:], nnz8x[:, 1:-1:2] | nnz8x[:, 2::2])
+        else:
+            segs = torch.zeros((2 * ii.shape[0], 0), dtype=I32,
+                               device=ii.device)
+        if splitx is None:
+            return segs, None
+        nz_int = nnz8x[:, ::2] | nnz8x[:, 1::2]
+        sp2 = splitx.repeat_interleave(2, dim=0)
+        return segs, (sp2 & nz_int).to(I32)
+
+    seg_v, int_v = seg_and_int(is_intra, mv, nnz8, tu_split, ncw)
+    y, u, v = _deblock_axis(y, u, v, bs_v, seg_v, int_v, qp, ncw)
+
+    seg_h, int_h = seg_and_int(is_intra.T, mv.transpose(0, 1), nnz8.T,
+                               None if tu_split is None else tu_split.T,
+                               nch)
+    yt, ut, vt = _deblock_axis(y.T, u.T, v.T, bs_h.T, seg_h, int_h, qp, nch)
+    return tuple(p.T.to(torch.uint8).contiguous() for p in (yt, ut, vt))
+
+
+# ---------------------------------------------------------------------------
+# frame ops
+# ---------------------------------------------------------------------------
+
+def _col_view(plane, n: int):
+    """(H, W) -> (ncols, nrows, n, n) column-major CTB tiles."""
+    h, w = plane.shape
+    return plane.reshape(h // n, n, w // n, n).permute(2, 0, 1, 3)
+
+
+def _from_cols(cols):
+    """(ncols, nrows, n, n) -> (H, W)."""
+    ncw, nch, n, _ = cols.shape
+    return cols.permute(1, 2, 0, 3).reshape(nch * n, ncw * n)
+
+
+def _intra_col(ly, lu, lv, sy, su, sv, qp: int, qp_c: int):
+    """One CTB column of intra coding for all rows, from each row's
+    left recon columns; returns per-row (mode, levels, recon tiles)."""
+    c = _consts(sy.device)
+    preds = _intra_preds(ly, CTB, luma=True)             # (R, 12, 16, 16)
+    midx = _argmin_first(_satd8_blocks(sy[:, None] - preds), 1)
+    lv_y, rec_y = _code_tu(sy, _select_cand(preds, midx), qp, c["t16"], 4)
+    pu = _select_cand(_intra_preds(lu, CTB // 2, luma=False), midx)
+    pv = _select_cand(_intra_preds(lv, CTB // 2, luma=False), midx)
+    lv_u, rec_u = _code_tu(su, pu, qp_c, c["t8"], 3)
+    lv_v, rec_v = _code_tu(sv, pv, qp_c, c["t8"], 3)
+    return c["modes"][midx], (lv_y, lv_u, lv_v), (rec_y, rec_u, rec_v)
+
+
+def _i_frame_core(y, u, v, qp: int, qp_c: int):
+    """Intra frame: a loop over the CTB columns, every CTB row at once
+    (rows are independent slices). The carry is each row's right recon
+    column, 128 before column 0 (the spec's no-neighbour value)."""
+    y, u, v = (p.to(I32) for p in (y, u, v))
+    h, w = y.shape
+    nch, ncw = h // CTB, w // CTB
+    dev = y.device
+    ys, us, vs = _col_view(y, CTB), _col_view(u, CTB // 2), _col_view(v, CTB // 2)
+    left = (torch.full((nch, CTB), 128, dtype=I32, device=dev),
+            torch.full((nch, CTB // 2), 128, dtype=I32, device=dev),
+            torch.full((nch, CTB // 2), 128, dtype=I32, device=dev))
+    cols = []
+    for cx in range(ncw):
+        mode, lvs, recs = _intra_col(*left, ys[cx], us[cx], vs[cx], qp, qp_c)
+        left = tuple(r[:, :, -1] for r in recs)
+        cols.append((mode, *lvs, *recs))
+    mode, lv_y, lv_u, lv_v, rec_y, rec_u, rec_v = (
+        torch.stack(t) for t in zip(*cols))
+    return {
+        "is_intra": torch.ones((nch, ncw), dtype=torch.bool, device=dev),
+        "mode": mode.T,
+        "mv": torch.zeros((nch, ncw, 2), dtype=I32, device=dev),
+        "tu_split": torch.zeros((nch, ncw), dtype=torch.bool, device=dev),
+        "luma_lv": lv_y.transpose(0, 1),
+        "cb_lv": lv_u.transpose(0, 1),
+        "cr_lv": lv_v.transpose(0, 1),
+        "recon": tuple(_from_cols(r).to(torch.uint8)
+                       for r in (rec_y, rec_u, rec_v)),
+    }
+
+
+def compact_slots(flat, cap: int):
+    """Sparse-compact (n, 384) int16 slot rows for transfer.
+
+    Keeps only nonzeros, in slot order within each row (row-major
+    stream), by one prefix sum and one scatter. Returns
+      pos  (cap,) int16  slot index within the row's 384-slot layout
+      val  (cap,) int16  level
+      nnz  () int32 total (> cap means the buffer overflowed).
+    The JAX version compacts in three levels with segment caps; where
+    those caps bind it reports cap + 1 for a frame that fits here.
+    Both then code the same levels (its exact fallback), so the streams
+    agree and only the packed rows differ."""
+    n, slots = flat.shape
+    mask = (flat != 0).reshape(-1)
+    dst = torch.cumsum(mask, 0) - 1
+    dst = torch.where(mask & (dst < cap), dst, cap)
+    slot = torch.arange(slots, dtype=torch.int16,
+                        device=flat.device).repeat(n)
+    zeros = torch.zeros(cap + 1, dtype=torch.int16, device=flat.device)
+    pos = zeros.scatter(0, dst, slot)[:cap]
+    val = zeros.scatter(0, dst, flat.reshape(-1))[:cap]
+    return pos, val, mask.sum(dtype=I32)
+
+
+def _compact_levels(luma_lv, cb_lv, cr_lv, cap: int):
+    """Sparse-compact one frame's quantized levels for transfer: per
+    CTB [luma 256 | cb 64 | cr 64] (raster inside each TU), see
+    compact_slots. Also returns counts (nch, ncw, 3) int32, the per-TU
+    nonzero counts."""
+    nch, ncw = luma_lv.shape[:2]
+    n_ctb = nch * ncw
+    flat = torch.cat([luma_lv.reshape(n_ctb, 256),
+                      cb_lv.reshape(n_ctb, 64),
+                      cr_lv.reshape(n_ctb, 64)], dim=1).to(torch.int16)
+    mask = flat != 0
+    counts = torch.stack([mask[:, :256].sum(1, dtype=I32),
+                          mask[:, 256:320].sum(1, dtype=I32),
+                          mask[:, 320:].sum(1, dtype=I32)], dim=1)
+    pos, val, nnz = compact_slots(flat, cap)
+    return pos, val, counts.reshape(nch, ncw, 3), nnz
+
+
+def _pad_ref(ref_y, ref_u, ref_v):
+    """The reference planes as int32, edge-padded (== the spec's
+    picture-edge clip): luma by LUMA_SRC_PAD, chroma by CHROMA_PAD."""
+    pl, pc = LUMA_SRC_PAD, CHROMA_PAD
+    return (_pad_edge(ref_y.to(I32), pl, pl, pl, pl),
+            _pad_edge(ref_u.to(I32), pc, pc, pc, pc),
+            _pad_edge(ref_v.to(I32), pc, pc, pc, pc))
+
+
+def _p_motion(y, ref_y_pad, ref_u_pad, ref_v_pad, stage=_untimed):
+    """A P frame's motion stage over the padded references (_pad_ref):
+    luma search + MC, then chroma MC. Returns (mv_q, pred_y, pred_u,
+    pred_v)."""
+    mv_q, pred14 = _motion_luma_dev(y.to(I32), ref_y_pad, LUMA_SRC_PAD,
+                                    stage)
+    pred_u, pred_v = stage("chroma_mc", lambda: tuple(
+        _mc_chroma_window(r, mv_q, CHROMA_PAD)
+        for r in (ref_u_pad, ref_v_pad)))
+    return mv_q, _unblocks(_pred8_from14(pred14)), pred_u, pred_v
+
+
+def _p_tail(y, u, v, mv_q, pred_y, pred_u, pred_v, qp: int, qp_c: int):
+    """A P frame from its motion stage's output: residuals, the intra
+    fallback, and the MVs (0 on intra CTBs)."""
+    outs = _inter_frame_tail(y, u, v, pred_y, pred_u, pred_v, qp, qp_c)
+    outs["mv"] = torch.where(outs["is_intra"][..., None], 0, mv_q)
+    return outs
+
+
+def _p_frame_core(y, u, v, ref_y, ref_u, ref_v, qp: int, qp_c: int,
+                  stage=_untimed):
+    """P frame against the (unpadded, uint8) reference planes: stages
+    "motion" and "p_tail"."""
+    mc = stage("motion", lambda: _p_motion(y, *_pad_ref(ref_y, ref_u,
+                                                         ref_v)))
+    return stage("p_tail", lambda: _p_tail(y, u, v, *mc, qp, qp_c))
+
+
+def _inter_frame_tail(y, u, v, pred_y, pred_u, pred_v, qp: int,
+                      qp_c: int):
+    """Inter residuals + fully parallel per-CTB intra fallback. The
+    source planes may stay uint8: they enter only differences with the
+    int32 predictions, which promote them.
+
+    Intra fallback is only allowed when the left neighbour codes inter
+    (an encoder-side choice; the bitstream stays legal), so every intra
+    CTB's left reference column is the left neighbour's inter
+    reconstruction and the whole frame's intra candidates, mode
+    decision and selection run as one batch. The alternation rule
+    use[c] = want[c] & ~use[c-1] is the parity of c against the start
+    of its run of `want`, found with one cummax."""
+    h, w = y.shape
+    nch, ncw = h // CTB, w // CTB
+    c = _consts(y.device)
+    t16, t8 = c["t16"], c["t8"]
+
+    inter_sad = _satd8_frame(y - pred_y)                 # (nch, ncw)
+    sy, su, sv = _col_view(y, CTB), _col_view(u, CTB // 2), _col_view(v, CTB // 2)
+    ilv_y, irec_y = _code_tu(sy, _col_view(pred_y, CTB), qp, t16, 4,
+                             intra=False)
+    ilv_u, irec_u = _code_tu(su, _col_view(pred_u, CTB // 2), qp_c, t8, 3,
+                             intra=False)
+    ilv_v, irec_v = _code_tu(sv, _col_view(pred_v, CTB // 2), qp_c, t8, 3,
+                             intra=False)
+
+    r = ncw * nch
+    sy = sy.reshape(r, CTB, CTB)
+    su = su.reshape(r, CTB // 2, CTB // 2)
+    sv = sv.reshape(r, CTB // 2, CTB // 2)
+
+    # left reference column per CTB = left neighbour's inter recon
+    # right column (column 0: the spec's no-neighbour 128)
+    def left_cols(irec, n):
+        first = torch.full((1, nch, n), 128, dtype=I32, device=y.device)
+        return torch.cat([first, irec[:-1, :, :, -1]]).reshape(r, n)
+
+    preds = _intra_preds(left_cols(irec_y, CTB), CTB, luma=True)
+    sads = _satd8_blocks(sy[:, None] - preds)            # (R, 12)
+    midx = _argmin_first(sads, 1)
+    intra_sad = sads.amin(1)
+    want = (intra_sad * INTRA_BIAS_DEN
+            < inter_sad.T.reshape(r) * INTRA_BIAS_NUM).reshape(ncw, nch)
+
+    cidx = torch.arange(ncw, dtype=I32, device=y.device)[:, None]
+    last0 = torch.cummax(torch.where(want, -1, cidx), dim=0).values
+    use_cols = want & (((cidx - last0 - 1) & 1) == 0)    # (ncw, nch)
+    m = use_cols.reshape(r)[:, None, None]
+
+    alv_y, arec_y = _code_tu(sy, _select_cand(preds, midx), qp, t16, 4)
+    pu = _select_cand(_intra_preds(left_cols(irec_u, CTB // 2), CTB // 2,
+                                   luma=False), midx)
+    pv = _select_cand(_intra_preds(left_cols(irec_v, CTB // 2), CTB // 2,
+                                   luma=False), midx)
+    alv_u, arec_u = _code_tu(su, pu, qp_c, t8, 3)
+    alv_v, arec_v = _code_tu(sv, pv, qp_c, t8, 3)
+
+    def sel(a, b):
+        return torch.where(m, a, b.reshape(a.shape)).reshape(
+            ncw, nch, *a.shape[1:])
+
+    is_intra = use_cols.T
+    mode = c["modes"][midx].reshape(ncw, nch).T
+    return {
+        "is_intra": is_intra,
+        "mode": torch.where(is_intra, mode, 0),
+        "tu_split": torch.zeros_like(is_intra),
+        "luma_lv": sel(alv_y, ilv_y).transpose(0, 1),
+        "cb_lv": sel(alv_u, ilv_u).transpose(0, 1),
+        "cr_lv": sel(alv_v, ilv_v).transpose(0, 1),
+        "recon": tuple(_from_cols(sel(a, b)).to(torch.uint8)
+                       for a, b in ((arec_y, irec_y), (arec_u, irec_u),
+                                    (arec_v, irec_v))),
+    }
+
+
+# ---------------------------------------------------------------------------
+# run loop and the packed transfer rows
+# ---------------------------------------------------------------------------
+
+def run_pack_layout(n_ctb: int, chunk: int = LEVEL_CHUNK) -> dict:
+    """Byte offsets of each section in one frame's packed transfer row
+    (_pack_run_streams). Sections are padded to 4-byte boundaries so
+    host numpy views land aligned."""
+    def pad4(x):
+        return -(-x // 4) * 4
+
+    off = {"nnz": 0, "meta": 4}
+    off["counts"] = off["meta"] + pad4(n_ctb)
+    off["mv"] = off["counts"] + pad4(2 * n_ctb)
+    off["lv0"] = off["mv"] + pad4(2 * n_ctb)
+    off["total"] = off["lv0"] + 4 * chunk
+    return off
+
+
+def _pack_run_streams(d, n: int, chunk: int = LEVEL_CHUNK) -> dict:
+    """One uint8 transfer row per frame, in the JAX package's byte
+    layout (run_pack_layout): nnz int32 | meta uint8 (bit7 is_intra,
+    bit6 tu_split, low bits intra mode) | per-CTB nonzero level counts
+    uint16 | mv int8 pairs | level chunk 0 as interleaved (pos, val)
+    int16. d holds the frames' stacked arrays (leading axis n). Returns
+    "packed" (n, total) uint8 and "lv_rest" (n, cap - chunk, 2) int16,
+    the level entries past chunk 0. Multi-byte fields are built in
+    their own signed types and reinterpreted as bytes (torch's CPU
+    build has no uint16 arithmetic)."""
+    nch, ncw = d["is_intra"].shape[1:3]
+    n_ctb = nch * ncw
+
+    def u8(a):
+        return a.contiguous().view(torch.uint8).reshape(n, -1)
+
+    def pad4(a):
+        fill = torch.zeros((n, (-a.shape[1]) % 4), dtype=torch.uint8,
+                           device=a.device)
+        return torch.cat([a, fill], dim=1)
+
+    meta = ((d["is_intra"].to(I32) << 7) | (d["tu_split"].to(I32) << 6)
+            | d["mode"].to(I32)).to(torch.uint8)
+    counts = d["counts"].reshape(n, n_ctb, -1).sum(-1, dtype=I32)
+    pv = torch.stack([d["pos"].reshape(n, -1), d["val"].reshape(n, -1)],
+                     dim=-1)                                 # (n, cap, 2)
+    packed = torch.cat([
+        u8(d["nnz"].to(I32).reshape(n, 1)),
+        pad4(meta.reshape(n, n_ctb)),
+        pad4(u8(counts.to(torch.int16))),
+        pad4(u8(d["mv"].to(torch.int8).reshape(n, -1))),
+        u8(pv[:, :chunk])], dim=1)
+    return {"packed": packed, "lv_rest": pv[:, chunk:]}
+
+
+def level_capacity(n_ctb: int, idr: bool,
+                   cap: int | None = None) -> tuple[int, int]:
+    """(capacity, chunk-0 size) of one frame's sparse levels, as the JAX
+    encoder sizes them, so that fallbacks fall on the same frames. A P
+    frame holds `cap` entries (default 48 per CTB, at least two chunks)
+    rounded up to whole LEVEL_CHUNKs, chunk 0 one LEVEL_CHUNK. An IDR
+    frame's chunk 0 holds ~25% of the dense 384 slots per CTB, so that
+    a typical all-intra frame needs no extra entries; its capacity is
+    at least two such chunks."""
+    cap = cap or max(2 * LEVEL_CHUNK, n_ctb * 48)
+    cap = -(-cap // LEVEL_CHUNK) * LEVEL_CHUNK
+    if not idr:
+        return cap, LEVEL_CHUNK
+    chunk = -(-(n_ctb * 96) // LEVEL_CHUNK) * LEVEL_CHUNK
+    return max(cap, 2 * chunk), chunk
+
+
+def _pack_frame(o, cap: int, chunk: int) -> dict:
+    """One frame's transfer row (_pack_run_streams) from its core's
+    outputs, and its dense int16 levels (the exact fallback)."""
+    pos, val, counts, nnz = _compact_levels(o["luma_lv"], o["cb_lv"],
+                                            o["cr_lv"], cap)
+    row = {k: o[k][None] for k in ("is_intra", "tu_split", "mode", "mv")}
+    row.update(pos=pos[None], val=val[None], counts=counts[None],
+               nnz=nnz[None])
+    out = _pack_run_streams(row, 1, chunk)
+    out["dense_lv"] = tuple(o[k].to(torch.int16)
+                            for k in ("luma_lv", "cb_lv", "cr_lv"))
+    return out
+
+
+def encode_frame_row(y, u, v, ref, idr: bool, qp: int, qp_c: int,
+                     cap: int, chunk: int, stage=_untimed) -> dict:
+    """One frame on the device: its core (stage "intra_core", or
+    "motion" and "p_tail" against the reference planes `ref`), the
+    deblock ("deblock") and its transfer row ("compact_pack"). Returns
+    "packed" (1, total) uint8 and "lv_rest" (see _pack_run_streams),
+    "dense_lv" (the frame's luma, cb and cr levels as int16, the exact
+    fallback when the sparse stream overflows) and "recon" (deblocked
+    uint8 planes, the next frame's reference)."""
+    if idr:
+        o = stage("intra_core", lambda: _i_frame_core(y, u, v, qp, qp_c))
+    else:
+        o = _p_frame_core(y, u, v, *ref, qp, qp_c, stage=stage)
+    recon = stage("deblock", lambda: deblock_frame_dev(
+        *o["recon"], o["is_intra"], (o["luma_lv"] != 0).flatten(2).any(-1),
+        o["mv"], qp))
+    out = stage("compact_pack", lambda: _pack_frame(o, cap, chunk))
+    out["recon"] = recon
+    return out
+
+
+def encode_run_rows(planes, idr_flags, qps, qpcs, ref, caps,
+                    chunks) -> list[dict]:
+    """Encode a run of frames on the device, in order, carrying the
+    deblocked reference from frame to frame.
+
+    planes(f) gives frame f's (y, u, v) device planes at the padded
+    size; ref is the reference before the run (uint8 planes); per frame
+    f: idr_flags[f], qps[f], qpcs[f] and the sparse-level capacity
+    caps[f] and chunk-0 size chunks[f] of its packed row. Returns
+    encode_frame_row's dict per frame. Port of the JAX encode_run_rows
+    and encode_idr_rows/_idr_tail."""
+    outs = []
+    for f, idr in enumerate(idr_flags):
+        out = encode_frame_row(*planes(f), ref, bool(idr), int(qps[f]),
+                               int(qpcs[f]), caps[f], chunks[f])
+        ref = out["recon"]
+        outs.append(out)
+    return outs

@@ -30,7 +30,7 @@ from ceracoder_tpu_torch.ops.intra import encode_frame_i16_rows
 from ceracoder_tpu_torch.ops.transform import chroma_qp
 
 
-def _stage(name, fn, out):
+def time_stage(name, fn, out):
     """Run fn() (a pure stage) twice: once timed on the host clock
     between synchronizations, once under torch.profiler to count its
     kernel launches and their device time; record into out[name]."""
@@ -62,25 +62,25 @@ def profile_frames(width: int, height: int, p_frames: int) -> list[dict]:
         hv = torch.as_tensor(hv, device=dev)
         hl = torch.as_tensor(hl, device=dev)
         st: dict = {}
-        y, u, v = _stage("source", lambda: src.frame(i), st)
+        y, u, v = time_stage("source", lambda: src.frame(i), st)
         if idr:
-            outs = _stage("intra", lambda: encode_frame_i16_rows(
+            outs = time_stage("intra", lambda: encode_frame_i16_rows(
                 y, u, v, qp, qpc), st)
             nnz = torch.zeros((mbh, mbw, 4, 4), dtype=torch.int32,
                               device=dev)
             mv = torch.zeros((mbh, mbw, 2), dtype=torch.int32, device=dev)
         else:
-            outs = _stage("inter", lambda: encode_frame_p(
+            outs = time_stage("inter", lambda: encode_frame_p(
                 y, u, v, *ref, qp, qpc), st)
             nnz = (outs["luma_levels"] != 0).any(-1).to(torch.int32)
             mv = outs["mv"]
-        ref = _stage("deblock", lambda: deblock_frame_rows(
+        ref = time_stage("deblock", lambda: deblock_frame_rows(
             *outs["recon"], nnz, mv, qp, qpc, intra_frame=idr), st)
         assemble = de.assemble_i_slots if idr else de.assemble_p_slots
-        mb_vals, mb_lens = _stage("assemble", lambda: assemble(outs), st)
-        row_bytes, stream = _stage("pack", lambda: de.pack_frame(
+        mb_vals, mb_lens = time_stage("assemble", lambda: assemble(outs), st)
+        row_bytes, stream = time_stage("pack", lambda: de.pack_frame(
             hv, hl, mb_vals, mb_lens, enc._capw, enc._totcap), st)
-        _stage("host_copy", lambda: (row_bytes.cpu(), stream.cpu()), st)
+        time_stage("host_copy", lambda: (row_bytes.cpu(), stream.cpu()), st)
         total = {k: sum(s[k] for s in st.values())
                  for k in ("host_ms", "launches", "device_ms")}
         rows.append({"frame": i, "type": "IDR" if idr else "P",

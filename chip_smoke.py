@@ -21,7 +21,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    before and read just after;
 5. GPU equals CPU: the same port at 320x192 (6 frames, gop 4, two
    runs) on cuda and cpu gives byte-identical streams, and so do the
-   first IDR and P frame at 1080p.
+   first IDR and P frame at 1080p;
+6. HEVC main path: H265DeviceEncoder(1920, 1088, qp=30, gop=60)
+   (deblocking, tile rows, native entropy) on the same source, 3 runs
+   of 10 frames through encode_run_async; checks the GOP structure
+   (1 IDR, then P), the NAL types (IDR_W_RADL, then TRAIL_R), the
+   start codes and the recon shapes; kernel launch counts are set to 0
+   just before and read just after (the HEVC path runs no hand-written
+   kernel: K1 must stay at 0); prints frames/s, seconds per run, bytes
+   per IDR and mean P frame, fallback frames and peak device memory;
+7. HEVC GPU equals CPU: 320x192 (6 frames, gop 4, two runs) and the
+   first 1080p IDR + P frame, byte-identical.
+
+The native HEVC entropy library (native/src/hevc_entropy.cc, g++) is
+built in phase 2 beside the kernels.
 
 The last lines are the nvidia-smi line, a JSON line of kernel numbers
 and the result line {"ok": true, "device": {...}}. It prints no result
@@ -83,20 +96,22 @@ def device_ms(fn, iters: int, windows: int = 5, warmup: int = 5,
     torch.profiler records, in windows of `iters` calls each. Unlike
     time_cuda, host launch gaps do not count.
 
-    Every window must record the same whole number of kernel events per
-    call. The profiler sometimes loses events, some of a window's or
-    all of them: a window with fewer events than the most any window
-    recorded is set aside (`dropped_windows`) and another is taken. The
-    check fails if no window records a kernel, or unless `windows`
-    windows agree within `max_windows`. Returns the median of the
-    agreeing windows, their [min, max] and the kernel events per call."""
+    fn launches a whole number k of kernels per call: k*iters events
+    per window, k taken from the window that recorded the most. The
+    profiler sometimes loses events, some of a window's or all of them.
+    A window that lost at most 1% of its k*iters events is scaled up by
+    the share it lost (`lost_events` counts them); one that lost more
+    is set aside (`dropped_windows`) and another is taken. The check
+    fails if no window records a kernel, or unless `windows` windows
+    are kept within `max_windows`. Returns the median of the kept
+    windows, their [min, max] and k."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    by_count: dict[int, list[float]] = {}
+    seen: list[tuple[int, float]] = []
     for taken in range(1, max_windows + 1):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -104,36 +119,44 @@ def device_ms(fn, iters: int, windows: int = 5, warmup: int = 5,
             torch.cuda.synchronize()
         kernels = [e for e in prof.events()
                    if e.device_type == DeviceType.CUDA]
-        by_count.setdefault(len(kernels), []).append(
-            sum(e.time_range.elapsed_us() for e in kernels) / 1e3 / iters)
-        if len(by_count[max(by_count)]) >= windows:
+        seen.append((len(kernels), sum(e.time_range.elapsed_us()
+                                       for e in kernels) / 1e3))
+        k = round(max(n for n, _ in seen) / iters)
+        want = k * iters
+        kept = [(n, ms) for n, ms in seen
+                if k and want - max(1, want // 100) <= n <= want]
+        if len(kept) >= windows:
             break
-    count = max(by_count)
-    per_call = by_count[count]
-    check(count > 0, f"no profiler window of {iters} calls recorded a "
-          "kernel")
-    check(len(per_call) >= windows and count % iters == 0,
+    check(k > 0, f"no profiler window of {iters} calls recorded a kernel")
+    check(len(kept) >= windows,
           f"kernel events per window of {iters} calls: "
-          f"{ {c: len(v) for c, v in by_count.items()} } (count: windows)")
+          f"{[n for n, _ in seen]}, want {want} in {windows} windows")
+    per_call = [ms * want / n / iters for n, ms in kept]
     return {"ms": statistics.median(per_call),
             "spread": [min(per_call), max(per_call)],
-            "kernels_per_call": count // iters,
-            "dropped_windows": taken - len(per_call)}
+            "kernels_per_call": k,
+            "dropped_windows": taken - len(kept),
+            "lost_events": sum(want - n for n, _ in kept)}
 
 
 def build_kernels(tag: str) -> None:
+    from ceracoder_tpu_torch.utils import host_build
     from ceracoder_tpu_torch.utils.cuda_build import build_library
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNELS)) as pool:
+    with ThreadPoolExecutor(max_workers=len(KERNELS) + 1) as pool:
         futs = {name: pool.submit(build_library, name) for name in KERNELS}
+        native = pool.submit(host_build.build_library)
         results = {name: f.result() for name, f in futs.items()}
+        native_path = native.result()
     secs = time.perf_counter() - t0
     for name, (path, log) in results.items():
         print(f"build {name}: {path.name}")
         for line in log.strip().splitlines():
             print(f"  ptxas {name}: {line.strip()}")
-    print(f"{tag} build seconds (all kernels, parallel nvcc): {secs:.2f}")
+    print(f"build native HEVC entropy (g++): {native_path.name}")
+    print(f"{tag} build seconds (all kernels, parallel nvcc, and the "
+          f"native entropy library): {secs:.2f}")
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +308,7 @@ def merge_numbers(case, iters: int = 200):
         out[key.replace("ms", "spread")] = dev["spread"]
         out[key.replace("ms", "kernels")] = dev["kernels_per_call"]
         out[key.replace("ms", "dropped")] = dev["dropped_windows"]
+        out[key.replace("ms", "lost")] = dev["lost_events"]
     out["library_ms"] = min(out["library_i64_ms"], out["library_i32_ms"])
     bound_ms = max(nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S) * 1e3
     return {
@@ -337,7 +361,10 @@ def phase_kernels(tag: str) -> dict:
               f"{n['event_library_i32_ms']:.6f}; profiler windows set "
               f"aside (lost events) K1/plain/int64/int32: {n['dropped']}/"
               f"{n['plain_dropped']}/{n['library_i64_dropped']}/"
-              f"{n['library_i32_dropped']}; bound_ms="
+              f"{n['library_i32_dropped']}; events lost in kept windows "
+              f"(scaled) K1/plain/int64/int32: {n['lost']}/"
+              f"{n['plain_lost']}/{n['library_i64_lost']}/"
+              f"{n['library_i32_lost']}; bound_ms="
               f"{n['bound_ms']:.6f} ({n['bound_by']}, {n['bytes']} B), "
               f"share of bound {n['bound_share']:.4f}; K1 below the "
               f"library call: {n['ms'] < n['library_ms']}")
@@ -447,6 +474,115 @@ def phase_gpu_equals_cpu(tag: str, main: dict) -> None:
           f"{len(cpu2)} B identical (CPU run {time.perf_counter() - t:.2f} s)")
 
 
+# ---------------------------------------------------------------------------
+# HEVC main path and GPU-vs-CPU
+# ---------------------------------------------------------------------------
+
+NAL_IDR_W_RADL, NAL_TRAIL_R = 19, 1
+
+
+def check_hevc_frame(data: bytes, idr: bool) -> None:
+    """One frame: a single NAL unit (one slice, a tile per CTB row)
+    behind a 4-byte start code, of the frame's NAL type."""
+    check(data.startswith(b"\x00\x00\x00\x01"), "frame lacks a start code")
+    nals = data.count(b"\x00\x00\x01")
+    check(nals == 1, f"{nals} NAL units, want 1 (tile rows, one slice)")
+    want = NAL_IDR_W_RADL if idr else NAL_TRAIL_R
+    got = (data[4] >> 1) & 0x3F
+    check(got == want, f"NAL type {got}, want {want}")
+
+
+def phase_hevc_main_path(tag: str) -> dict:
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+    from ceracoder_tpu_torch.ops.bitpack import merge_windows
+
+    w, h, runs, run_len = 1920, 1088, 3, 10
+    src = DeviceTestPatternSource(w, h, texture=6)
+    enc = H265DeviceEncoder(w, h, qp=30, gop=60)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    merge_windows.launches = 0
+    frames, run_secs = [], []
+    t0 = time.perf_counter()
+    for r in range(runs):
+        t = time.perf_counter()
+        pend = enc.encode_run_async(
+            source=src, indices=range(r * run_len, (r + 1) * run_len))
+        frames += [p.result() for p in pend]
+        torch.cuda.synchronize()
+        run_secs.append(time.perf_counter() - t)
+    secs = time.perf_counter() - t0
+    launches = {"merge_windows": merge_windows.launches}
+    nf = runs * run_len
+    check(len(frames) == nf, "frame count")
+    check([f.keyframe for f in frames] == [True] + [False] * (nf - 1),
+          "GOP structure (1 IDR + P frames)")
+    for f in frames:
+        check_hevc_frame(f.data, f.keyframe)
+    rec = frames[-1].recon
+    check(rec[0].shape == (h, w) and rec[1].shape == (h // 2, w // 2)
+          and rec[2].shape == (h // 2, w // 2), "recon shapes")
+    check(all(f._recon_dev[0].device.type == "cuda" for f in frames),
+          "recon not on the card")
+    check(launches["merge_windows"] == 0,
+          "K1 launched on the HEVC path, which runs no hand kernel")
+    sizes = [len(f.data) for f in frames]
+    out = {
+        "frames": nf, "seconds": secs, "fps": nf / secs,
+        "fps_runs_2_3": 2 * run_len / sum(run_secs[1:]),
+        "run_seconds": run_secs,
+        "bytes_idr": sizes[0], "bytes_p_mean": sum(sizes[1:]) / (nf - 1),
+        "fallback_frames": enc.fallback_frames, "launches": launches,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "first_two": b"".join(f.data for f in frames[:2]),
+    }
+    print(f"{tag} HEVC main path 1080p: {nf} frames in {secs:.3f} s "
+          f"= {out['fps']:.3f} frames/s (runs 2-3: "
+          f"{out['fps_runs_2_3']:.3f} frames/s; per run "
+          f"{', '.join(f'{s:.3f}' for s in run_secs)} s)")
+    print(f"{tag} HEVC main path bytes/frame: IDR {out['bytes_idr']}, P "
+          f"mean {out['bytes_p_mean']:.1f}; fallback frames "
+          f"{out['fallback_frames']}; hand-kernel launches {launches}; "
+          f"peak device memory {out['peak_mem_bytes']} B")
+    return out
+
+
+def encode_hevc_stream(device: str, w: int, h: int, runs, gop: int,
+                       qp: int, texture: int) -> bytes:
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+
+    src = DeviceTestPatternSource(w, h, texture=texture, device=device)
+    enc = H265DeviceEncoder(w, h, qp=qp, gop=gop, device=device)
+    data = enc.headers()
+    for idx in runs:
+        data += b"".join(p.result().data
+                         for p in enc.encode_run_async(source=src,
+                                                       indices=idx))
+    return data
+
+
+def phase_hevc_gpu_equals_cpu(tag: str, main: dict) -> None:
+    runs = [range(0, 3), range(3, 6)]
+    t = time.perf_counter()
+    gpu = encode_hevc_stream("cuda", 320, 192, runs, 4, 30, 6)
+    cpu = encode_hevc_stream("cpu", 320, 192, runs, 4, 30, 6)
+    check(gpu == cpu, "HEVC 320x192 GPU and CPU streams differ")
+    print(f"{tag} HEVC GPU == CPU at 320x192, 6 frames, gop 4, 2 runs: "
+          f"{len(gpu)} B identical ({time.perf_counter() - t:.2f} s)")
+    t = time.perf_counter()
+    cpu2 = encode_hevc_stream("cpu", 1920, 1088, [range(2)], 60, 30, 6)
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+    hdr = H265DeviceEncoder(1920, 1088, qp=30, gop=60,
+                            device="cpu").headers()
+    check(cpu2 == hdr + main["first_two"],
+          "HEVC 1080p IDR + P frame: GPU and CPU bytes differ")
+    print(f"{tag} HEVC GPU == CPU at 1920x1088, first IDR + P frame: "
+          f"{len(main['first_two'])} B identical (CPU run "
+          f"{time.perf_counter() - t:.2f} s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -466,6 +602,10 @@ def main() -> int:
     k1 = phase_kernels(tag)
     main_out = phase_main_path(tag)
     phase_gpu_equals_cpu(tag, main_out)
+    hevc = phase_hevc_main_path(tag)
+    phase_hevc_gpu_equals_cpu(tag, hevc)
+    print(json.dumps({"hevc_main_path": {
+        k: v for k, v in hevc.items() if k != "first_two"}}))
 
     p = k1["P"]
     kernels = [{

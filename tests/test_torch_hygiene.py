@@ -48,3 +48,43 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert H264Encoder(64, 48, device="cpu").device.type == "cpu"
     with pytest.raises(NotImplementedError, match="CABAC"):
         H264Encoder(64, 48, cabac=True, device="cpu")
+
+
+def test_hevc_entry_points_default_to_cuda(monkeypatch):
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        H265DeviceEncoder(64, 48)
+    assert H265DeviceEncoder(64, 48, device="cpu").device.type == "cpu"
+    # the JAX encoder's options that are later slices of the port are
+    # not accepted, so no caller can believe it got them
+    for kw in ({"sao": True}, {"tu_split": True}, {"bframes": 1},
+               {"native_entropy": False}, {"deblock": False},
+               {"tile_rows": False}):
+        with pytest.raises(TypeError, match="unexpected keyword"):
+            H265DeviceEncoder(64, 48, device="cpu", **kw)
+
+
+def test_hevc_has_no_python_entropy_fallback(monkeypatch):
+    """A native entropy library that cannot be built stops the encoder;
+    nothing falls back to a Python entropy coder."""
+    import numpy as np
+
+    import ceracoder_tpu_torch.utils.host_build as hb
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+
+    def broken():
+        raise RuntimeError("g++ failed for hevc_entropy.cc")
+
+    hb.load_hevc_entropy.cache_clear()
+    monkeypatch.setattr(hb, "build_library", broken)
+    try:
+        enc = H265DeviceEncoder(32, 32, device="cpu")
+        frame = (np.zeros((32, 32), np.uint8),
+                 np.zeros((16, 16), np.uint8), np.zeros((16, 16), np.uint8))
+        (pend,) = enc.encode_run_async([frame])
+        with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+            pend.result()
+    finally:
+        hb.load_hevc_entropy.cache_clear()
