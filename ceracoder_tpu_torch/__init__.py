@@ -12,9 +12,16 @@ and numpy only: never jax, never anything of ``ceracoder_tpu``.
                deblocking, and the window merge (``ops/bitpack.py``)
                whose CUDA kernel lives in ``csrc/merge_windows.cu``;
                the HEVC row-slice compute (``ops/h265.py``).
-- ``app/``     the device test-pattern source.
+- ``app/``     the live encoder app (``python -m ceracoder_tpu_torch``,
+               HEVC): CLI, jobspec, host and device sources, overlay,
+               PTS fixup and the main loop.
+- ``control/`` the balancers, their runner (native core by default),
+               QP rate control and the scene-cut detector.
+- ``transport/`` MPEG-TS mux, the 1316 B packer and the SRT client.
+- ``audio/``   AAC / Opus encoding through the native shim.
+- ``native/``  ctypes declarations of the native balancer and buffers.
 - ``utils/``   device resolution, the kernel build and the native
-               entropy library's build.
+               libraries' build.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

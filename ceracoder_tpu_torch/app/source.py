@@ -1,15 +1,20 @@
-"""Device frame source (torch).
+"""Frame sources — replace the reference's GStreamer capture elements
+(v4l2src / camlink / hdmi / test patterns; SURVEY.md §2.6).
 
-Port of ceracoder_tpu/app/source.py:DeviceTestPatternSource: a moving
-test pattern generated on the device, so no raw frames cross from the
-host. The planes equal the reference's: colour bars, a scrolling
+Host sources (numpy planes), copied from ceracoder_tpu/app/source.py:
+the procedural test pattern, y4m and raw yuv420p files, MB padding and
+a capture-timestamp wrapper. The device source is the port's own: a
+moving test pattern generated on the card, so no raw frames cross from
+the host. Its planes equal the reference's: colour bars, a scrolling
 gradient band, a bouncing high-contrast block, and a per-frame integer
 hash texture.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from dataclasses import dataclass
+from pathlib import Path
+from typing import Iterator, Optional, Protocol
 
 import numpy as np
 import torch
@@ -20,6 +25,57 @@ _M32 = 0xFFFFFFFF
 _BAR_LUMA = np.array([235, 210, 170, 145, 106, 81, 41, 16], np.int64)
 _BAR_CB = np.array([128, 16, 166, 54, 202, 90, 240, 128], np.int64)
 _BAR_CR = np.array([128, 146, 16, 34, 222, 240, 110, 128], np.int64)
+
+
+class FrameSource(Protocol):
+    width: int
+    height: int
+    fps_num: int
+    fps_den: int
+
+    def frames(self) -> Iterator[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """Yield (y, u, v) uint8 planes in 4:2:0."""
+        ...
+
+
+@dataclass
+class TestPatternSource:
+    """Procedural moving test pattern (colour bars + scrolling gradient
+    + frame counter strip), analog of videotestsrc."""
+
+    __test__ = False  # not a pytest class despite the name
+
+    width: int = 1280
+    height: int = 720
+    fps_num: int = 30
+    fps_den: int = 1
+    num_frames: Optional[int] = None   # None = endless
+
+    def frames(self):
+        h, w = self.height, self.width
+        yy, xx = np.mgrid[0:h, 0:w]
+        bar = (xx * 8 // w)
+        bar_luma = np.array([235, 210, 170, 145, 106, 81, 41, 16], np.int32)
+        base_y = bar_luma[bar]
+        bar_cb = np.array([128, 16, 166, 54, 202, 90, 240, 128], np.int32)
+        bar_cr = np.array([128, 146, 16, 34, 222, 240, 110, 128], np.int32)
+        cs = (slice(None, None, 2), slice(None, None, 2))
+        i = 0
+        while self.num_frames is None or i < self.num_frames:
+            shift = (i * 4) % w
+            y = base_y.copy()
+            # scrolling gradient band in the middle third
+            band = slice(h // 3, 2 * h // 3)
+            y[band] = ((xx[band] + shift) * 255 // w)
+            # moving block (exercises motion estimation later)
+            bx = (i * 7) % (w - 64)
+            by = (h * 3 // 4)
+            y[by:by + 48, bx:bx + 64] = 255 if i % 2 == 0 else 16
+            u = bar_cb[bar][cs].copy()
+            v = bar_cr[bar][cs].copy()
+            yield (y.astype(np.uint8), u.astype(np.uint8),
+                   v.astype(np.uint8))
+            i += 1
 
 
 class DeviceTestPatternSource:
@@ -82,3 +138,127 @@ class DeviceTestPatternSource:
         while self.num_frames is None or i < self.num_frames:
             yield self.frame(i)
             i += 1
+
+
+class Y4MFileSource:
+    """YUV4MPEG2 file reader (4:2:0 only)."""
+
+    def __init__(self, path: str | Path, loop: bool = False):
+        self.path = Path(path)
+        self.loop = loop
+        with open(self.path, "rb") as f:
+            header = f.readline().decode()
+        if not header.startswith("YUV4MPEG2"):
+            raise ValueError("not a y4m file")
+        self.width = self.height = 0
+        self.fps_num, self.fps_den = 30, 1
+        for tok in header.split()[1:]:
+            if tok[0] == "W":
+                self.width = int(tok[1:])
+            elif tok[0] == "H":
+                self.height = int(tok[1:])
+            elif tok[0] == "F":
+                n, d = tok[1:].split(":")
+                self.fps_num, self.fps_den = int(n), int(d)
+            elif tok[0] == "C" and not tok[1:].startswith("420"):
+                raise ValueError(f"unsupported chroma format {tok}")
+        if not self.width or not self.height:
+            raise ValueError("y4m missing dimensions")
+
+    def frames(self):
+        w, h = self.width, self.height
+        fsz = w * h * 3 // 2
+        while True:
+            with open(self.path, "rb") as f:
+                f.readline()
+                while True:
+                    line = f.readline()
+                    if not line:
+                        break
+                    if not line.startswith(b"FRAME"):
+                        raise ValueError("bad y4m frame marker")
+                    raw = f.read(fsz)
+                    if len(raw) < fsz:
+                        break
+                    a = np.frombuffer(raw, np.uint8)
+                    yield (a[:w * h].reshape(h, w),
+                           a[w * h:w * h + w * h // 4].reshape(h // 2, w // 2),
+                           a[w * h + w * h // 4:].reshape(h // 2, w // 2))
+            if not self.loop:
+                return
+
+
+class RawYuvSource:
+    """Raw planar yuv420p file reader (dimensions supplied)."""
+
+    def __init__(self, path: str | Path, width: int, height: int,
+                 fps_num: int = 30, fps_den: int = 1, loop: bool = False):
+        self.path = Path(path)
+        self.width, self.height = width, height
+        self.fps_num, self.fps_den = fps_num, fps_den
+        self.loop = loop
+
+    def frames(self):
+        w, h = self.width, self.height
+        fsz = w * h * 3 // 2
+        while True:
+            data = np.fromfile(self.path, np.uint8)
+            for i in range(data.size // fsz):
+                a = data[i * fsz:(i + 1) * fsz]
+                yield (a[:w * h].reshape(h, w),
+                       a[w * h:w * h + w * h // 4].reshape(h // 2, w // 2),
+                       a[w * h + w * h // 4:].reshape(h // 2, w // 2))
+            if not self.loop:
+                return
+
+
+def pad_to_mb(y: np.ndarray, u: np.ndarray, v: np.ndarray):
+    """Edge-pad planes to 16-multiple dims (SPS cropping undoes it)."""
+    h, w = y.shape
+    ph, pw = (-h) % 16, (-w) % 16
+    if not ph and not pw:
+        return y, u, v
+    y = np.pad(y, ((0, ph), (0, pw)), mode="edge")
+    u = np.pad(u, ((0, ph // 2), (0, pw // 2)), mode="edge")
+    v = np.pad(v, ((0, ph // 2), (0, pw // 2)), mode="edge")
+    return y, u, v
+
+
+class JitteryCaptureSource:
+    """Wrap any FrameSource with synthetic capture timestamps (90 kHz)
+    carrying jitter, duplicates, and occasional backwards steps — the
+    conditions the reference's ptsfixup probe exists for (reference:
+    src/ceracoder.c:371-423). Exposes frames_with_pts(), the optional
+    source protocol the app feeds through app.ptsfix.PtsFixup."""
+
+    def __init__(self, inner, jitter90: int = 300, dup_every: int = 0,
+                 backstep_every: int = 0, seed: int = 0):
+        self.inner = inner
+        self.width = inner.width
+        self.height = inner.height
+        self.fps_num = inner.fps_num
+        self.fps_den = inner.fps_den
+        self.jitter90 = jitter90
+        self.dup_every = dup_every
+        self.backstep_every = backstep_every
+        self.seed = seed
+
+    def frames(self):
+        for f, _ in self.frames_with_pts():
+            yield f
+
+    def frames_with_pts(self):
+        rng = np.random.default_rng(self.seed)
+        period = 90000 * self.fps_den / max(1, self.fps_num)
+        t = 0.0
+        i = 0
+        for f in self.inner.frames():
+            i += 1
+            t += period
+            pts = int(t) + int(rng.integers(-self.jitter90,
+                                            self.jitter90 + 1))
+            if self.backstep_every and i % self.backstep_every == 0:
+                pts -= int(2 * self.jitter90 + period)
+            yield f, pts
+            if self.dup_every and i % self.dup_every == 0:
+                yield f, pts            # duplicate frame, same pts

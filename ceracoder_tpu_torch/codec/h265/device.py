@@ -11,8 +11,11 @@ capacity is coded from its dense levels, kept on the device until the
 run's results are read: the same arrays, so the same bytes as the JAX
 encoder's exact fallback.
 
-Not ported yet (ROADMAP.md): SAO, the inter TU split, B frames, the
-per-frame entry points and the Python entropy spec.
+The per-frame entry points (`encode_frame`, `encode_frame_async`, the
+app's low-delay loop) are runs of one frame.
+
+Not ported yet (ROADMAP.md): SAO, the inter TU split, B frames
+(`push_frame`, `flush`) and the Python entropy spec.
 """
 
 from __future__ import annotations
@@ -56,7 +59,9 @@ class H265DeviceEncoder:
 
     Runs on `device` (default ``cuda``; raises without a card unless
     ``device="cpu"``). `fallback_frames` counts frames whose sparse
-    levels overflowed and were coded from their dense levels.
+    levels overflowed and were coded from their dense levels;
+    `frames_launched` frames whose device work has started (the app's
+    stall watchdog reads it).
     """
 
     def __init__(self, width: int, height: int, qp: int = 32,
@@ -75,6 +80,7 @@ class H265DeviceEncoder:
         self._ref = None              # device recon planes (padded size)
         self._poc = 0
         self.fallback_frames = 0
+        self.frames_launched = 0
 
     def headers(self) -> bytes:
         p = self.params
@@ -108,7 +114,12 @@ class H265DeviceEncoder:
         (h, w)."""
         if not isinstance(plane, torch.Tensor):
             plane = torch.as_tensor(np.asarray(plane))
-        plane = plane.to(self.device)
+        if self.device.type == "cuda" and plane.device.type == "cpu":
+            # from pinned memory without blocking: a copy from pageable
+            # memory waits for all device work already queued
+            plane = plane.pin_memory().to(self.device, non_blocking=True)
+        else:
+            plane = plane.to(self.device)
         ph, pw = plane.shape
         if (ph, pw) == (h, w):
             return plane
@@ -127,11 +138,23 @@ class H265DeviceEncoder:
                 return source.frame(idx[f])
 
         def planes(f):
+            self.frames_launched += 1
             y, u, v = get(f)
             return (self._pad(y, self.ph, self.pw),
                     self._pad(u, self.ph // 2, self.pw // 2),
                     self._pad(v, self.ph // 2, self.pw // 2))
         return planes
+
+    def encode_frame(self, y, u, v, qp: int | None = None,
+                     force_idr: bool = False) -> EncodedFrame:
+        return self.encode_frame_async(y, u, v, qp, force_idr).result()
+
+    def encode_frame_async(self, y, u, v, qp: int | None = None,
+                           force_idr: bool = False) -> PendingFrame:
+        """One frame, as a run of one: the same device arrays as the
+        JAX encoder's per-frame path, so the same bytes."""
+        return self.encode_run_async(frames=[(y, u, v)], qp=qp,
+                                     force_idr=force_idr)[0]
 
     def encode_run_async(self, frames=None, qp: int | None = None,
                          qps=None, source=None, indices=None,

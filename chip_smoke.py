@@ -31,9 +31,23 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    kernel: K1 must stay at 0); prints frames/s, seconds per run, bytes
    per IDR and mean P frame, fallback frames and peak device memory;
 7. HEVC GPU equals CPU: 320x192 (6 frames, gop 4, two runs) and the
-   first 1080p IDR + P frame, byte-identical.
+   first 1080p IDR + P frame, byte-identical;
+8. the product loop: CeracoderApp (python -m ceracoder_tpu_torch) on a
+   devtest 1920x1088 job at 60 frames/s, hevc, gop 60, runs of 10, tone
+   audio where the AAC encoder builds, the fixed balancer, latency
+   2000 ms, realtime pacing, sending to a loopback SRT listener (UDP
+   where libsrt does not load); 40 warm-up frames, then 120 timed.
+   Checks every payload (1316 B of 188 B TS packets, sync bytes,
+   unbroken continuity counters), the keyframes (frames 0, 60, 120) and
+   that K1 is launched 0 times; prints emit-to-emit frames/s and the
+   host seconds in encode_run_async, PendingFrame.result() and mux +
+   pack + send, timed by wrapping those calls here, not in the app;
+9. app GPU equals CPU: one 320x192 job through CeracoderApp on cuda and
+   on cpu gives identical TS bytes, for the host-source run loop (run =
+   4), the per-frame loop (run = 1) and the device-source run loop.
 
-The native HEVC entropy library (native/src/hevc_entropy.cc, g++) is
+The native libraries (native/src: the HEVC entropy stage, the balancer
+core and, where the libavcodec headers are, the audio shim; g++) are
 built in phase 2 beside the kernels.
 
 The last lines are the nvidia-smi line, a JSON line of kernel numbers
@@ -47,8 +61,11 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -57,6 +74,7 @@ import torch
 KERNELS = {
     "merge_windows": ("ceracoder_tpu/ops/bitpack.py:112", "cuda"),
 }
+ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
 INT32_OPS_PER_S = 67e12        # non-tensor 32-bit rate (fp32 figure)
 
@@ -143,20 +161,28 @@ def build_kernels(tag: str) -> None:
     from ceracoder_tpu_torch.utils import host_build
     from ceracoder_tpu_torch.utils.cuda_build import build_library
 
+    native_libs = ["hevc_entropy", "balancer"]
+    if host_build.have_avcodec():
+        native_libs.append("audio_enc")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(KERNELS) + 1) as pool:
+    with ThreadPoolExecutor(
+            max_workers=len(KERNELS) + len(native_libs)) as pool:
         futs = {name: pool.submit(build_library, name) for name in KERNELS}
-        native = pool.submit(host_build.build_library)
+        native = {name: pool.submit(host_build.build_library, name)
+                  for name in native_libs}
         results = {name: f.result() for name, f in futs.items()}
-        native_path = native.result()
+        native_paths = {name: f.result() for name, f in native.items()}
     secs = time.perf_counter() - t0
     for name, (path, log) in results.items():
         print(f"build {name}: {path.name}")
         for line in log.strip().splitlines():
             print(f"  ptxas {name}: {line.strip()}")
-    print(f"build native HEVC entropy (g++): {native_path.name}")
+    for name, path in native_paths.items():
+        print(f"build native {name} (g++): {path.name}")
+    if "audio_enc" not in native_paths:
+        print("no libavcodec headers: the audio shim is not built")
     print(f"{tag} build seconds (all kernels, parallel nvcc, and the "
-          f"native entropy library): {secs:.2f}")
+          f"native libraries): {secs:.2f}")
 
 
 # ---------------------------------------------------------------------------
@@ -583,6 +609,274 @@ def phase_hevc_gpu_equals_cpu(tag: str, main: dict) -> None:
           f"{time.perf_counter() - t:.2f} s)")
 
 
+# ---------------------------------------------------------------------------
+# The product loop (CeracoderApp) and app GPU-vs-CPU
+# ---------------------------------------------------------------------------
+
+APP_W, APP_H, APP_FPS, APP_GOP, APP_RUN = 1920, 1088, 60, 60, 10
+APP_WARM, APP_TIMED = 40, 120
+
+
+def check_ts_payloads(payloads: list, pkt_size: int = 1316) -> int:
+    """Every payload pkt_size bytes of 188 B TS packets with sync bytes,
+    and the continuity counter of each PID unbroken across them (every
+    packet the muxer writes carries payload). Returns packets seen."""
+    check(all(len(p) == pkt_size for p in payloads),
+          f"payload sizes {sorted({len(p) for p in payloads})}, want "
+          f"{pkt_size}")
+    data = np.frombuffer(b"".join(payloads), np.uint8).reshape(-1, 188)
+    check(bool((data[:, 0] == 0x47).all()), "TS sync byte missing")
+    pid = (data[:, 1].astype(np.int64) & 0x1F) << 8 | data[:, 2]
+    cc = data[:, 3] & 0x0F
+    check(bool(((data[:, 3] >> 4) & 1).all()), "TS packet without payload")
+    for p in np.unique(pid):
+        seq = cc[pid == p].astype(np.int64)
+        check(bool((np.diff(seq) % 16 == 1).all()),
+              f"continuity counter broken on PID {int(p)}")
+    return data.shape[0]
+
+
+class LoopbackListener:
+    """The stream's receiver on this host: an SRT listener where libsrt
+    loads (as bench.py's full loop), else a UDP socket. Counts the
+    bytes and payloads it receives on a daemon thread."""
+
+    def __init__(self):
+        import socket
+        import threading
+
+        from ceracoder_tpu_torch.transport.srt import srt_available
+
+        self.nbytes = 0
+        self.sizes = set()
+        probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        probe.bind(("127.0.0.1", 0))
+        self.port = probe.getsockname()[1]
+        if srt_available():
+            from ceracoder_tpu_torch.transport.srt import (
+                SRTO_RCVLATENCY, SrtSocket)
+            probe.close()
+            self.kind, self.addr = "srt", "127.0.0.1"
+            self.sock = SrtSocket()
+            self.sock.set_int(SRTO_RCVLATENCY, 120)
+            self.sock.bind("127.0.0.1", self.port)
+            self.sock.listen()
+            target = self._serve_srt
+        else:
+            self.kind, self.addr = "udp", "udp"
+            probe.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 24)
+            probe.settimeout(0.5)
+            self.sock = probe
+            target = self._serve_udp
+        self._stop = threading.Event()
+        self.thread = threading.Thread(target=target, daemon=True)
+        self.thread.start()
+
+    def _count(self, data: bytes) -> None:
+        self.nbytes += len(data)
+        self.sizes.add(len(data))
+
+    def _serve_udp(self):
+        import socket
+        while not self._stop.is_set():
+            try:
+                self._count(self.sock.recv(65536))
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+
+    def _serve_srt(self):
+        from ceracoder_tpu_torch.transport.srt import SrtError
+        try:
+            peer = self.sock.accept()
+        except SrtError:
+            return
+        try:
+            while not self._stop.is_set():
+                data = peer.recv(2000)
+                if not data:
+                    break
+                self._count(data)
+        except SrtError:
+            pass
+        finally:
+            peer.close()
+
+    def close(self):
+        self._stop.set()
+        self.sock.close()
+        self.thread.join(timeout=5)
+
+
+def watchdog_gap(app, stop) -> float:
+    """The longest time the stall watchdog's position stood still after
+    its first move, sampled every 5 ms until `stop`. The watchdog arms
+    at the first move and fires when two checks 1 s apart see the same
+    position, so a gap over 1 s can trip it."""
+    last, since, longest = app._position(), None, 0.0
+    while not stop.is_set():
+        time.sleep(0.005)
+        pos, now = app._position(), time.perf_counter()
+        if pos != last:
+            if since is not None:
+                longest = max(longest, now - since)
+            last, since = pos, now
+    return longest
+
+
+class Timed:
+    """Host seconds spent inside wrapped calls, counted while `on`."""
+
+    def __init__(self):
+        self.on = False
+        self.secs: dict = {}
+
+    def wrap(self, key: str, fn):
+        self.secs.setdefault(key, 0.0)
+
+        def timed(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **kw)
+            finally:
+                if self.on:
+                    self.secs[key] += time.perf_counter() - t
+        return timed
+
+
+def phase_app_loop(tag: str, tmpdir) -> dict:
+    from ceracoder_tpu_torch.app.cli import CliOptions
+    from ceracoder_tpu_torch.app.main import CeracoderApp
+    from ceracoder_tpu_torch.ops.bitpack import merge_windows
+
+    job = tmpdir / "app_1080p60.ini"
+    job.write_text(f"[source]\nkind = devtest\nwidth = {APP_W}\n"
+                   f"height = {APP_H}\nfps = {APP_FPS}\n\n[encode]\n"
+                   f"codec = hevc\ngop = {APP_GOP}\nrun = {APP_RUN}\n\n"
+                   "[audio]\nkind = tone\nbitrate = 128\n")
+    listener = LoopbackListener()
+    opts = CliOptions(job_file=str(job), addr=listener.addr,
+                      port=listener.port, latency=2000, balancer="fixed")
+    total = APP_WARM + APP_TIMED
+    app = CeracoderApp(opts, max_frames=total, realtime=True)
+    # as bench.py's full loop: the stall watchdog would read the first
+    # 1080p IDR run (seconds of launches, no frame sent) as a wedge
+    app._start_stall_watchdog = lambda: None
+    timed = Timed()
+    emits, keys, payloads = [], [], []
+    run_async = timed.wrap("encode_run_async", app.encoder.encode_run_async)
+
+    def encode_run_async(*a, **kw):
+        pend = run_async(*a, **kw)
+        for pf in pend:
+            pf.result = timed.wrap("result", pf.result)
+        return pend
+    app.encoder.encode_run_async = encode_run_async
+    app.mux.mux_video = timed.wrap("mux_pack_send", app.mux.mux_video)
+    app.mux.mux_audio = timed.wrap("mux_pack_send", app.mux.mux_audio)
+    app.packer.feed = timed.wrap("mux_pack_send", app.packer.feed)
+    send = app.transport.send
+
+    def send_and_keep(payload):
+        payloads.append(payload)
+        return send(payload)
+    app.transport.send = timed.wrap("mux_pack_send", send_and_keep)
+    if app.audio is not None:
+        app.audio.feed = timed.wrap("audio_encode", app.audio.feed)
+    emit = app._emit_frame
+
+    def emit_and_time(frame, fpts, pacer):
+        keys.append(frame.keyframe)
+        emit(frame, fpts, pacer)
+        emits.append(time.perf_counter())
+        timed.on = len(emits) >= APP_WARM
+    app._emit_frame = emit_and_time
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    merge_windows.launches = 0
+    t0 = time.perf_counter()
+    stop = threading.Event()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        watch = pool.submit(watchdog_gap, app, stop)
+        try:
+            rc = app.run()
+        finally:
+            stop.set()
+            listener.close()
+        gap = watch.result()
+    secs = time.perf_counter() - t0
+    launches = merge_windows.launches
+    check(rc == 0, f"app exited {rc}")
+    check(len(emits) == total, f"{len(emits)} frames emitted, want {total}")
+    window = emits[-1] - emits[APP_WARM - 1]
+    packets = check_ts_payloads(payloads)
+    check([i for i, k in enumerate(keys) if k] == [0, 60, 120],
+          f"keyframes at {[i for i, k in enumerate(keys) if k]}")
+    check(launches == 0, f"K1 launched {launches} times in the app loop")
+    check(listener.nbytes > 0 or listener.kind == "srt",
+          "the UDP listener received nothing")
+    check(listener.sizes <= {1316}, f"received sizes {listener.sizes}")
+    out = {
+        "frames": total, "timed_frames": APP_TIMED,
+        "fps": APP_TIMED / window, "timed_seconds": window,
+        "seconds_total": secs,
+        "host_seconds": {k: v for k, v in timed.secs.items()},
+        "longest_watchdog_gap_s": gap,
+        "bytes_sent": sum(map(len, payloads)), "payloads": len(payloads),
+        "ts_packets": packets, "bytes_received": listener.nbytes,
+        "transport": listener.kind, "audio": app.audio is not None,
+        "fallback_frames": app.encoder.fallback_frames,
+        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        "k1_launches": launches,
+        "job": {"kind": "devtest", "width": APP_W, "height": APP_H,
+                "fps": APP_FPS, "codec": "hevc", "gop": APP_GOP,
+                "run": APP_RUN, "audio": "tone 128 kbps",
+                "balancer": "fixed", "latency_ms": 2000,
+                "realtime": True},
+    }
+    print(f"{tag} app loop {APP_W}x{APP_H} at {APP_FPS} frames/s, HEVC "
+          f"over {listener.kind} (audio "
+          f"{'AAC tone' if out['audio'] else 'off: no AAC encoder'}): "
+          f"{APP_TIMED} timed frames at {out['fps']:.3f} frames/s "
+          f"emit to emit ({window:.3f} s; {secs:.3f} s for all {total}); "
+          f"host s in the window: " + ", ".join(
+              f"{k} {v:.3f}" for k, v in out["host_seconds"].items()))
+    print(f"{tag} app loop sent {out['bytes_sent']} B in {len(payloads)} "
+          f"payloads of 1316 B ({packets} TS packets, continuity "
+          f"unbroken), received {listener.nbytes} B; keyframes at 0, 60, "
+          f"120; K1 launches 0; peak device memory "
+          f"{out['peak_mem_bytes']} B; longest time the stall watchdog's "
+          f"position stood still after it moved: {gap:.3f} s")
+    return out
+
+
+def app_ts(device: str, job, out) -> bytes:
+    from ceracoder_tpu_torch.app.cli import CliOptions
+    from ceracoder_tpu_torch.app.main import CeracoderApp
+
+    opts = CliOptions(job_file=str(job), addr=str(out), port=0)
+    app = CeracoderApp(opts, max_frames=12, realtime=False, device=device)
+    check(app.run() == 0 and app.frames_sent == 12, "app run")
+    return out.read_bytes()
+
+
+def phase_app_gpu_equals_cpu(tag: str, tmpdir) -> None:
+    for kind, run in (("test", 4), ("test", 1), ("devtest", 4)):
+        job = tmpdir / f"app_{kind}_{run}.ini"
+        job.write_text(f"[source]\nkind = {kind}\nwidth = 320\n"
+                       "height = 192\nfps = 30\n\n[encode]\ncodec = hevc\n"
+                       f"gop = 8\nrun = {run}\n")
+        t = time.perf_counter()
+        gpu = app_ts("cuda", job, tmpdir / "gpu.ts")
+        cpu = app_ts("cpu", job, tmpdir / "cpu.ts")
+        check(gpu == cpu, f"app {kind} run={run}: GPU and CPU TS differ")
+        print(f"{tag} app GPU == CPU, 320x192 {kind} source, run = {run}, "
+              f"12 frames: {len(gpu)} B of TS identical "
+              f"({time.perf_counter() - t:.2f} s)")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -606,6 +900,10 @@ def main() -> int:
     phase_hevc_gpu_equals_cpu(tag, hevc)
     print(json.dumps({"hevc_main_path": {
         k: v for k, v in hevc.items() if k != "first_two"}}))
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        app = phase_app_loop(tag, Path(d))
+        print(json.dumps({"app_loop": app}))
+        phase_app_gpu_equals_cpu(tag, Path(d))
 
     p = k1["P"]
     kernels = [{
@@ -619,6 +917,7 @@ def main() -> int:
         "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
         "bound_share": p["bound_share"], "library_ms": p["library_ms"],
         "library_i32_ms": p["library_i32_ms"], "design": "one-cta-per-row",
+        "launches_app_loop": app["k1_launches"],
     }]
     print(smi)
     print(json.dumps({"kernels": kernels}))

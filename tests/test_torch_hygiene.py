@@ -74,8 +74,8 @@ def test_hevc_has_no_python_entropy_fallback(monkeypatch):
     import ceracoder_tpu_torch.utils.host_build as hb
     from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
 
-    def broken():
-        raise RuntimeError("g++ failed for hevc_entropy.cc")
+    def broken(name):
+        raise RuntimeError(f"g++ failed for {name}.cc")
 
     hb.load_hevc_entropy.cache_clear()
     monkeypatch.setattr(hb, "build_library", broken)
@@ -88,3 +88,37 @@ def test_hevc_has_no_python_entropy_fallback(monkeypatch):
             pend.result()
     finally:
         hb.load_hevc_entropy.cache_clear()
+
+
+def test_app_defaults_to_cuda(monkeypatch, tmp_path):
+    """The app, its job's device source and `python -m
+    ceracoder_tpu_torch` run on the card and raise without one; the CPU
+    is used only when asked for."""
+    import os
+    import subprocess
+    import sys
+
+    from ceracoder_tpu_torch.app.cli import CliOptions
+    from ceracoder_tpu_torch.app.jobspec import open_source, parse_jobspec
+    from ceracoder_tpu_torch.app.main import CeracoderApp
+
+    job = tmp_path / "job.ini"
+    job.write_text("[source]\nkind = devtest\nwidth = 96\nheight = 64\n"
+                   "\n[encode]\ncodec = hevc\n")
+    opts = CliOptions(job_file=str(job), addr=str(tmp_path / "o.ts"), port=0)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    proc = subprocess.run([sys.executable, "-m", "ceracoder_tpu_torch",
+                           str(job), str(tmp_path / "o.ts"), "0"],
+                          cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert "device='cpu'" in proc.stderr
+    assert not (tmp_path / "o.ts").exists()
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        CeracoderApp(opts)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        open_source(parse_jobspec(job))
+    assert CeracoderApp(opts, device="cpu").encoder.device.type == "cpu"
+    assert open_source(parse_jobspec(job), device="cpu").device.type == "cpu"
