@@ -16,7 +16,7 @@ Example::
     fps = 30
 
     [encode]
-    codec = hevc           # hevc | h264 (the port's app: hevc only)
+    codec = hevc           # hevc | h264
     gop = 60               # frames between IDRs (2 s of frames default)
 
     [audio]

@@ -1,17 +1,19 @@
 """App orchestration — the reference's main loop rebuilt around the
 device encoder (reference: src/ceracoder.c:446-614).
 
-Port of ceracoder_tpu/app/main.py, HEVC branch, on a torch device
-(default ``cuda``). Structure per frame period:
+Port of ceracoder_tpu/app/main.py on a torch device (default
+``cuda``): `codec = hevc` (H265DeviceEncoder) and `codec = h264`
+(H264Encoder: CABAC with intra-in-P, as the JAX app codes it).
+Structure per frame period:
   encode (device) -> TS mux -> 1316 B packing -> transport send
 with a >=20 ms housekeeping tick interleaved (SRT stats -> balancer ->
 bitrate -> QP), plus the reference's failure detectors: ACK timeout
 (6000 ms), SIGHUP config reload, SIGALRM forced teardown.
 
-Where it departs from the JAX app: `codec = h264` raises
-NotImplementedError (the JAX app codes H.264 with CABAC, which the port
-has not yet; ROADMAP.md item 12), and so do `[parallel]` bands or
-gop_parallel when the devices for them are there (ROADMAP.md item 14).
+Where it departs from the JAX app: HEVC jobs with `[parallel]` bands or
+gop_parallel raise NotImplementedError when the devices for them are
+there (ROADMAP.md item 14); the JAX app's H.264 branch ignores those
+knobs, and so does the port's.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ceracoder_tpu_torch.app.cli import CliOptions
 from ceracoder_tpu_torch.app.jobspec import open_source, parse_jobspec
 from ceracoder_tpu_torch.app.overlay import TickLog, overlay_text
 from ceracoder_tpu_torch.app.source import DeviceTestPatternSource, pad_to_mb
+from ceracoder_tpu_torch.codec.h264.encoder import H264Encoder
 from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
 from ceracoder_tpu_torch.control import (
     BalancerInput,
@@ -41,7 +44,10 @@ from ceracoder_tpu_torch.control.types import MIN_BITRATE, ABS_MAX_BITRATE
 from ceracoder_tpu_torch.transport.mpegts import TsMuxer, TsPacker
 from ceracoder_tpu_torch.transport.srt import SrtClient, SrtError, srt_available
 from ceracoder_tpu_torch.utils.device import resolve_device
-from ceracoder_tpu_torch.utils.host_build import load_hevc_entropy
+from ceracoder_tpu_torch.utils.host_build import (
+    load_h264_cabac,
+    load_hevc_entropy,
+)
 
 SRT_ACK_TIMEOUT_MS = 6000      # reference: src/ceracoder.c:47
 HOUSEKEEPING_MS = 20           # reference: BITRATE_UPDATE_INT
@@ -176,11 +182,6 @@ class CeracoderApp:
         self.device = resolve_device(device)
 
         self.spec = parse_jobspec(opts.job_file)
-        if self.spec.codec != "hevc":
-            raise NotImplementedError(
-                f"codec = {self.spec.codec}: the port's app codes HEVC "
-                "only; its H.264 encoder has no CABAC yet, which the "
-                "reference app uses (ROADMAP.md item 12)")
         self.source = open_source(self.spec, device=self.device)
 
         self.cfg = CeracoderConfig()
@@ -198,29 +199,46 @@ class CeracoderApp:
                                      gop=self.spec.gop_frames)
         self.cur_bitrate = self.runner.config.max_bitrate
 
-        # device compute + native entropy (the production HEVC path).
-        # [parallel] bands/gop_parallel are the sharded and GOP-parallel
-        # schedulers, not ported yet; with one device they are ignored,
-        # as in the reference app.
-        n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
-                 else 1)
-        if ((self.spec.bands > 1 and n_dev >= self.spec.bands)
-                or (self.spec.gop_parallel > 1 and n_dev > 1)):
-            raise NotImplementedError(
-                f"[parallel] bands = {self.spec.bands}, gop_parallel = "
-                f"{self.spec.gop_parallel} on {n_dev} devices: the "
-                "parallel encoders are not ported yet (ROADMAP.md item 14)")
-        if self.spec.bands > 1 or self.spec.gop_parallel > 1:
-            print("parallel knobs ignored: "
-                  f"{n_dev} device(s) available", file=sys.stderr)
-        self.encoder = H265DeviceEncoder(
-            self.source.width, self.source.height,
-            qp=self.rate.current_qp, gop=self.spec.gop_frames,
-            device=self.device)
+        if self.spec.codec == "hevc":
+            # device compute + native entropy (the production HEVC
+            # path). [parallel] bands/gop_parallel are the sharded and
+            # GOP-parallel schedulers, not ported yet; with one device
+            # they are ignored, as in the reference app.
+            n_dev = (torch.cuda.device_count()
+                     if self.device.type == "cuda" else 1)
+            if ((self.spec.bands > 1 and n_dev >= self.spec.bands)
+                    or (self.spec.gop_parallel > 1 and n_dev > 1)):
+                raise NotImplementedError(
+                    f"[parallel] bands = {self.spec.bands}, gop_parallel "
+                    f"= {self.spec.gop_parallel} on {n_dev} devices: the "
+                    "parallel encoders are not ported yet (ROADMAP.md "
+                    "item 14)")
+            if self.spec.bands > 1 or self.spec.gop_parallel > 1:
+                print("parallel knobs ignored: "
+                      f"{n_dev} device(s) available", file=sys.stderr)
+            self.encoder = H265DeviceEncoder(
+                self.source.width, self.source.height,
+                qp=self.rate.current_qp, gop=self.spec.gop_frames,
+                device=self.device)
+            load_entropy = load_hevc_entropy
+            self.video_stream_type = 0x24   # STREAM_TYPE_HEVC
+        else:
+            # CABAC with intra-in-P (the encoder's defaults), coded at
+            # whole MBs; the SPS crops back to the source size
+            w = (self.source.width + 15) // 16 * 16
+            h = (self.source.height + 15) // 16 * 16
+            self.encoder = H264Encoder(w, h, qp=self.rate.current_qp,
+                                       fps_num=self.source.fps_num,
+                                       fps_den=self.source.fps_den,
+                                       gop=self.spec.gop_frames,
+                                       device=self.device)
+            self.encoder.sps.width = self.source.width
+            self.encoder.sps.height = self.source.height
+            load_entropy = load_h264_cabac
+            self.video_stream_type = 0x1B   # STREAM_TYPE_H264
         # build the entropy library now, before the stall watchdog can
         # arm: a first build takes seconds of g++ with no frame sent
-        load_hevc_entropy()
-        self.video_stream_type = 0x24   # STREAM_TYPE_HEVC
+        load_entropy()
         # audio branch (reference: alsasrc -> a_delay -> AAC -> mux;
         # pipeline audio chains, common.ts:55-90)
         self.audio = None

@@ -1,16 +1,27 @@
-"""H.264 encoder, CAVLC: device compute + device bit-packer (torch).
+"""H.264 encoder: device compute + CABAC (default) or CAVLC entropy.
 
-Port of ceracoder_tpu/codec/h264/encoder.py for `cabac=False`
-(Baseline profile): per frame, the device runs prediction / transform /
-quant / recon (ops/intra.py, ops/inter.py), deblocking (ops/deblock.py)
-and the whole CAVLC entropy stage with the K1 window merge
-(codec/h264/device_entropy.py). The host receives one compact buffer
-per run and splits it into one NAL unit per MB row (slice-per-MB-row
-schedule). A frame whose packed rows overflow their capacity is redone
-on the exact host-entropy path (host CAVLC, codec/h264/cavlc.py).
+Port of ceracoder_tpu/codec/h264/encoder.py. Per frame, the device
+runs prediction / transform / quant / recon (ops/intra.py, ops/inter.py)
+and deblocking (ops/deblock.py); one slice per MB row.
 
-The CABAC path (the JAX package's default H.264 entropy) is a later
-slice of the port; `cabac=True` raises NotImplementedError.
+- CABAC (`cabac=True`, the default; Main profile), with Intra_16x16
+  fallback MBs in P slices (`intra_in_p`, on with CABAC): the device
+  sparse-compacts each frame's syntax into one packed row
+  (codec/h264/cabac_run.py); the host copies the rows of a run, then
+  only the level chunks each frame used, and the native row coder
+  (codec/h264/cabac_assemble.py, native/src/h264_cabac.cc) writes the
+  slices on `.result()`. A run is split at its IDR frames: an IDR
+  frame goes alone, a P span as one loop over its frames.
+- CAVLC (`cabac=False`, Baseline profile): the whole entropy stage with
+  the K1 window merge runs on the device (codec/h264/device_entropy.py);
+  the host splits one compact buffer per run into NAL units.
+
+A frame whose compacted syntax or packed rows overflow their capacity is
+redone on the exact host path (device compute, dense arrays, host
+entropy) against the in-run reference, and counted in
+`fallback_frames`. The JAX encoder's `device_entropy=False` mode and its
+transfer prefetch hints are not ported: the host path serves only as
+that fallback, and the port copies exactly what each frame used.
 """
 
 from __future__ import annotations
@@ -26,7 +37,13 @@ from ceracoder_tpu_torch.codec.bitwriter import (
     se_code,
     ue_code,
 )
-from ceracoder_tpu_torch.codec.h264 import cavlc
+from ceracoder_tpu_torch.codec.h264 import cabac_run, cavlc
+from ceracoder_tpu_torch.codec.h264.cabac_assemble import (
+    assemble_i_cabac,
+    assemble_i_snake,
+    assemble_p_cabac,
+    assemble_p_snake,
+)
 from ceracoder_tpu_torch.codec.h264.cavlc_tables import CBP_INTER_TO_CODE
 from ceracoder_tpu_torch.codec.h264.device_entropy import (
     CHUNK_WORDS,
@@ -52,7 +69,7 @@ from ceracoder_tpu_torch.ops.deblock import deblock_frame_rows
 from ceracoder_tpu_torch.ops.inter import encode_frame_p
 from ceracoder_tpu_torch.ops.intra import encode_frame_i16_rows
 from ceracoder_tpu_torch.ops.transform import chroma_qp
-from ceracoder_tpu_torch.utils.device import resolve_device
+from ceracoder_tpu_torch.utils.device import resolve_device, upload
 
 S = cavlc.BLOCK_SLOTS
 
@@ -122,12 +139,16 @@ class PendingFrame:
 
 
 class H264Encoder:
-    """H.264 encoder: I (Intra_16x16) + P (P_L0_16x16/P_Skip) slices,
-    CAVLC entropy packed on the device, one slice per MB row.
+    """H.264 encoder: I (Intra_16x16) + P (P_L0_16x16/P_Skip, and
+    Intra_16x16 with `intra_in_p`) slices, one slice per MB row; CABAC
+    (Main profile) by default, CAVLC packed on the device with
+    `cabac=False` (Baseline profile).
 
     Runs on `device` (default ``cuda``; raises without a card unless
     ``device="cpu"``). `fallback_frames` counts frames that overflowed
-    the packed capacity and were redone on the exact host path.
+    their transfer capacity and were redone on the exact host path;
+    `frames_launched` frames whose device work has started (the app's
+    stall watchdog reads it).
     """
 
     def __init__(self, width: int, height: int, qp: int = 28,
@@ -136,11 +157,8 @@ class H264Encoder:
                  deblock: bool = True,
                  row_capacity_bytes: int | None = None,
                  frame_capacity_bytes: int | None = None,
-                 cabac: bool = False, device=None):
-        if cabac:
-            raise NotImplementedError(
-                "cabac=True: the H.264 CABAC path is a later slice of the "
-                "port (ROADMAP.md, queue item 12); use cabac=False")
+                 cabac: bool = True, intra_in_p: bool | None = None,
+                 device=None):
         if width % 16 or height % 16:
             raise ValueError("dimensions must be multiples of 16 "
                              "(use padding + SPS cropping upstream)")
@@ -150,6 +168,14 @@ class H264Encoder:
         self.qp = qp
         self.gop = max(1, gop)          # 1 = all-intra
         self.deblock = deblock
+        self.cabac = cabac
+        # Intra_16x16 fallback MBs in P slices: on by default with CABAC;
+        # the CAVLC device bit-packer codes all-inter P slices
+        if intra_in_p and not cabac:
+            raise ValueError("intra_in_p requires cabac=True (the "
+                             "CAVLC device bit-packer codes all-inter "
+                             "P slices)")
+        self.intra_in_p = cabac if intra_in_p is None else intra_in_p
         # per-row packed capacity in 32-bit words; overflow falls back to
         # the host entropy path for that frame (detected exactly)
         cap = row_capacity_bytes or max(2048, self.mbw * 192)
@@ -157,19 +183,28 @@ class H264Encoder:
         totcap = frame_capacity_bytes or max(1 << 16, width * height // 6)
         chunk_bytes = CHUNK_WORDS * 4
         self._totcap = -(-totcap // chunk_bytes) * chunk_bytes
+        # CABAC sparse-level capacities (entries, multiples of
+        # cabac_run.CHUNK), as the JAX encoder sizes them: P frames
+        # transfer in CHUNK-sized pieces; the IDR chunk holds a typical
+        # all-intra frame in one piece
+        n_mb = self.mbw * self.mbh
+        chunk = cabac_run.CHUNK
+        self._cabac_cap = -(-max(2 * chunk, n_mb * 48) // chunk) * chunk
+        self._cabac_idr_chunk = -(-(n_mb * 96) // chunk) * chunk
         self.chroma_qp_offset = chroma_qp_offset
         self.sps = SpsConfig(width=width, height=height,
                              fps_num=fps_num, fps_den=fps_den,
-                             profile_idc=66)
+                             profile_idc=77 if cabac else 66)
         self.pps = PpsConfig(pic_init_qp=26,
                              chroma_qp_index_offset=chroma_qp_offset,
-                             cabac=False)
+                             cabac=cabac)
         self.frame_idx = 0
         self.idr_pic_id = 0
         self.frame_num = 0              # reference-frame counter
         self._gop_pos = 0
         self._ref = None                # previous recon, device tensors
         self.fallback_frames = 0
+        self.frames_launched = 0
 
     def headers(self) -> bytes:
         return write_sps(self.sps) + write_pps(self.pps)
@@ -236,15 +271,21 @@ class H264Encoder:
         from the host frames, or generated on the device by `source`."""
         if frames is not None:
             def planes(f):
-                return tuple(torch.as_tensor(np.asarray(p), device=self.device)
-                             if not isinstance(p, torch.Tensor)
-                             else p.to(self.device) for p in frames[f])
+                return tuple(upload(p, self.device) for p in frames[f])
             return planes
         idx = [int(i) for i in indices]
 
         def planes(f):
             return source.frame(idx[f])
         return planes
+
+    def _launching(self, planes):
+        """planes, counting each frame in `frames_launched` as its device
+        work starts (the exact fallback's second call is not counted)."""
+        def launch(f):
+            self.frames_launched += 1
+            return planes(f)
+        return launch
 
     def encode_run_async(self, frames=None, qp: int | None = None,
                          qps=None, source=None, indices=None,
@@ -256,12 +297,15 @@ class H264Encoder:
         the device — no pixels cross from the host). The frames are
         enqueued on the device one after another, carrying the
         reconstruction; GOP scheduling (IDR placement) follows the
-        reference's state machine. The row byte counts of the whole run,
-        then each frame's used stream words, go to one pinned host
-        buffer with non-blocking copies; the first .result() of the run
-        waits on the recorded events, and each splits its frame into
-        NAL units.
+        reference's state machine. CABAC: see _encode_run_cabac.
+        CAVLC: the row byte counts of the whole run, then each frame's
+        used stream words, go to one pinned host buffer with
+        non-blocking copies; the first .result() of the run waits on
+        the recorded events, and each splits its frame into NAL units.
         """
+        if self.cabac:
+            return self._encode_run_cabac(frames, qp, qps, source, indices,
+                                          force_idr)
         nf = len(frames) if frames is not None else len(indices)
         if nf == 0:
             return []
@@ -302,7 +346,7 @@ class H264Encoder:
                             dtype=torch.uint8, device=self.device))
         planes = self._planes_fn(frames, source, indices)
         row_bytes, streams, recons = encode_run_packed(
-            planes, idr_flags, qp_arr, qpc_arr,
+            self._launching(planes), idr_flags, qp_arr, qpc_arr,
             torch.as_tensor(hvs, device=self.device),
             torch.as_tensor(hls, device=self.device),
             prev_ref, capw=self._capw, totcap=self._totcap,
@@ -385,6 +429,152 @@ class H264Encoder:
 
         return PendingFrame(finish, idr, qp)
 
+    def _encode_run_cabac(self, frames, qp, qps, source, indices,
+                          force_idr: bool) -> list[PendingFrame]:
+        """CABAC run scheduler: an IDR frame goes alone through
+        encode_idr_syntax, a P span as one loop through
+        encode_run_syntax_p (the JAX split); each span's packed rows go
+        to the host in one pinned buffer, and the native row coder
+        finishes each frame on .result()."""
+        nf = len(frames) if frames is not None else len(indices)
+        if nf == 0:
+            return []
+
+        # split mixed runs at IDR boundaries
+        sim_pos, sim_have = self._gop_pos, self._ref is not None
+        flags = []
+        for f in range(nf):
+            idr = ((force_idr and f == 0) or not sim_have
+                   or sim_pos >= self.gop)
+            flags.append(idr)
+            sim_pos = 1 if idr else sim_pos + 1
+            sim_have = True
+        if any(flags) and nf > 1:
+            cuts = [f for f in range(nf) if flags[f]]
+            bounds = sorted({0, nf} | set(cuts) | {c + 1 for c in cuts})
+            pend: list[PendingFrame] = []
+            for a, b in zip(bounds, bounds[1:]):
+                pend += self._encode_run_cabac(
+                    None if frames is None else frames[a:b],
+                    qp,
+                    None if qps is None else qps[a:b],
+                    source,
+                    None if indices is None else list(indices)[a:b],
+                    flags[a])
+            return pend
+        idr_run = bool(flags[0])        # single IDR, or pure-P span
+
+        qp_a = np.zeros(nf, np.int64)
+        qpc_a = np.zeros(nf, np.int64)
+        fnum_a = np.zeros(nf, np.int64)
+        ipid_a = np.zeros(nf, np.int64)
+        for f in range(nf):
+            qp_f = (qps[f] if qps is not None
+                    else (self.qp if qp is None else qp))
+            qp_a[f] = qp_f
+            qpc_a[f] = chroma_qp(int(qp_f), self.chroma_qp_offset)
+            fnum_a[f] = 0 if flags[f] else self.frame_num
+            ipid_a[f] = self.idr_pic_id
+            self._advance_state(flags[f])
+            self.frame_idx += 1
+
+        prev_ref = self._ref
+        planes = self._planes_fn(frames, source, indices)
+        launch = self._launching(planes)
+        if idr_run:
+            chunk = self._cabac_idr_chunk
+            cap = max(self._cabac_cap, 2 * chunk)
+            packed, rest, recon = cabac_run.encode_idr_syntax(
+                *launch(0), int(qp_a[0]), int(qpc_a[0]), cap=cap,
+                chunk=chunk, deblock=self.deblock)
+            recons = [recon]
+        else:
+            chunk = cabac_run.CHUNK
+            cap = self._cabac_cap
+            if prev_ref is None:      # unreachable: flags[0] would be IDR
+                raise AssertionError("P run without a reference")
+            packed, rest, recons = cabac_run.encode_run_syntax_p(
+                launch, qp_a, qpc_a, prev_ref, cap=cap, chunk=chunk,
+                deblock=self.deblock, intra_in_p=self.intra_in_p)
+        self._ref = recons[-1]
+        get_host = self._cabac_to_host(packed, rest, cap, chunk)
+        return [self._make_cabac_pending(
+            f, bool(flags[f]), int(qp_a[f]), int(qpc_a[f]), int(fnum_a[f]),
+            int(ipid_a[f]), get_host, cap, chunk, recons, prev_ref, planes)
+            for f in range(nf)]
+
+    def _cabac_to_host(self, packed: torch.Tensor, rest: torch.Tensor,
+                       cap: int, chunk: int):
+        """Start the copy of a run's packed rows into one pinned host
+        buffer (non-blocking); return a function that waits for it
+        once, then copies behind it, into the same buffer, only the
+        level chunks past chunk 0 that each frame's nnz needs (none for
+        a frame that overflowed cap), waits for those, and yields (rows
+        (F, L) uint8, get_chunk) for cabac_run.unpack_syntax."""
+        nf, length = packed.shape
+        extra = rest.shape[1]
+
+        def chunks(lv):
+            return lambda c: lv[:, c * chunk:(c + 1) * chunk]
+        if self.device.type != "cuda":
+            rows, lv = packed.numpy(), rest.numpy()
+            return lambda: (rows, chunks(lv))
+        host = torch.empty(nf * length + nf * extra * 4, dtype=torch.uint8,
+                           pin_memory=True)
+        host[:nf * length].view(nf, length).copy_(packed, non_blocking=True)
+        rows_done = torch.cuda.Event()
+        rows_done.record()
+        lv_host = host[nf * length:].view(torch.int16).view(nf, extra, 2)
+        got = []
+
+        def get():
+            if not got:
+                rows_done.synchronize()
+                rows = host[:nf * length].numpy().reshape(nf, length)
+                nnz = rows[:, :4].copy().view(np.int32)[:, 0]
+                for f, n in enumerate(nnz.tolist()):
+                    used = (0 if n > cap
+                            else max(0, -(-n // chunk) - 1) * chunk)
+                    if used:
+                        lv_host[f, :used].copy_(rest[f, :used],
+                                                non_blocking=True)
+                lv_done = torch.cuda.Event()
+                lv_done.record()
+                lv_done.synchronize()
+                got.append((rows, chunks(lv_host.numpy())))
+            return got[0]
+        return get
+
+    def _make_cabac_pending(self, f, idr, qp, qp_c, frame_num, idr_pic_id,
+                            get_host, cap, chunk, recons, run_ref,
+                            planes) -> PendingFrame:
+        def finish() -> EncodedFrame:
+            rows, get_chunk = get_host()
+            _, arrays = cabac_run.unpack_syntax(rows[f], get_chunk, f,
+                                                self.mbh, self.mbw, idr,
+                                                cap, chunk)
+            if arrays is None:
+                # capacity overflow: redo this frame on the exact dense
+                # host path, referencing the in-run reconstruction
+                self.fallback_frames += 1
+                ref = run_ref if f == 0 else recons[f - 1]
+                data, _ = self._encode_host_path(
+                    *planes(f), qp, qp_c, idr, frame_num, idr_pic_id, ref)
+            elif idr:
+                data = assemble_i_snake(
+                    arrays, qp, idr_pic_id, self.mbh, self.mbw,
+                    self.pps.pic_init_qp, self.deblock,
+                    self.sps.log2_max_frame_num)
+            else:
+                data = assemble_p_snake(
+                    arrays, qp, frame_num, self.mbh, self.mbw,
+                    self.pps.pic_init_qp, self.deblock,
+                    self.sps.log2_max_frame_num)
+            return EncodedFrame(data=data, keyframe=idr, qp=qp,
+                                _recon_dev=recons[f])
+
+        return PendingFrame(finish, idr, qp)
+
     def _advance_state(self, idr: bool) -> None:
         if idr:
             self.frame_num = 1          # IDR was frame_num 0
@@ -397,8 +587,9 @@ class H264Encoder:
 
     def _encode_host_path(self, y, u, v, qp: int, qp_c: int, idr: bool,
                           frame_num: int, idr_pic_id: int, prev_ref):
-        """Exact host-entropy path: device compute, host CAVLC. Does not
-        touch self._ref (later frames may already be in flight)."""
+        """Exact host-entropy path: device compute, dense arrays on the
+        host, host CABAC (native row coder) or CAVLC. Does not touch
+        self._ref (later frames may already be in flight)."""
         if idr:
             outs = encode_frame_i16_rows(y, u, v, qp, qp_c)
             recon = outs["recon"]
@@ -410,15 +601,23 @@ class H264Encoder:
                 recon = deblock_frame_rows(*recon, zero_nnz, zero_mv,
                                            qp, qp_c, intra_frame=True)
         else:
-            outs = encode_frame_p(y, u, v, *prev_ref, qp, qp_c)
+            outs = encode_frame_p(y, u, v, *prev_ref, qp, qp_c,
+                                  intra_in_p=self.intra_in_p)
             recon = outs["recon"]
             if self.deblock:
                 nnz44 = (outs["luma_levels"] != 0).any(-1).to(torch.int32)
                 recon = deblock_frame_rows(*recon, nnz44, outs["mv"],
-                                           qp, qp_c, intra_frame=False)
+                                           qp, qp_c, intra_frame=False,
+                                           intra_mb=outs.get("is_intra"))
         outs_np = {k: o.cpu().numpy() for k, o in outs.items()
                    if not isinstance(o, tuple)}
-        if idr:
+        hdr = (self.mbh, self.mbw, self.pps.pic_init_qp, self.deblock,
+               self.sps.log2_max_frame_num)
+        if idr and self.cabac:
+            data = assemble_i_cabac(outs_np, qp, idr_pic_id, *hdr)
+        elif self.cabac:
+            data = assemble_p_cabac(outs_np, qp, frame_num, *hdr)
+        elif idr:
             data = self._assemble(outs_np, qp, idr_pic_id)
         else:
             data = self._assemble_p(outs_np, qp, frame_num)

@@ -44,7 +44,7 @@ from ceracoder_tpu_torch.ops.h265 import (
     level_capacity,
     run_pack_layout,
 )
-from ceracoder_tpu_torch.utils.device import resolve_device
+from ceracoder_tpu_torch.utils.device import resolve_device, upload
 
 CTB = 16
 LEVEL_KEYS = ("luma_lv", "cb_lv", "cr_lv")
@@ -112,14 +112,7 @@ class H265DeviceEncoder:
     def _pad(self, plane, h: int, w: int) -> torch.Tensor:
         """A plane on the device, edge-padded on the bottom/right to
         (h, w)."""
-        if not isinstance(plane, torch.Tensor):
-            plane = torch.as_tensor(np.asarray(plane))
-        if self.device.type == "cuda" and plane.device.type == "cpu":
-            # from pinned memory without blocking: a copy from pageable
-            # memory waits for all device work already queued
-            plane = plane.pin_memory().to(self.device, non_blocking=True)
-        else:
-            plane = plane.to(self.device)
+        plane = upload(plane, self.device)
         ph, pw = plane.shape
         if (ph, pw) == (h, w):
             return plane

@@ -146,11 +146,14 @@ def _deblock_mb_chroma(cols, bs_v, bs_h, alpha, beta, tc0_row):
     cols[:, 4, 2:] = nq0
 
 
-def compute_bs(nnz44, mv_q, intra_frame: bool):
+def compute_bs(nnz44, mv_q, intra_frame: bool, intra_mb=None):
     """Boundary strengths (spec 8.7.2.1) for the slice-row schedule.
 
     nnz44: (mbh, mbw, 4, 4) nonzero-coefficient flags per luma 4x4.
     mv_q: (mbh, mbw, 2) quarter-pel MVs (ignored for intra frames).
+    intra_mb: optional (mbh, mbw) bool — Intra_16x16 MBs inside a P
+    frame (intra-in-P): their MB-boundary edges get bS 4 and internal
+    edges bS 3 regardless of the inter-side rules.
     Returns (bs_v (mbh, mbw, 4, 4), bs_h (mbh, mbw, 3, 4)) int32.
     """
     mbh, mbw = nnz44.shape[:2]
@@ -176,14 +179,28 @@ def compute_bs(nnz44, mv_q, intra_frame: bool):
     bs_h = torch.zeros((mbh, mbw, 3, 4), dtype=torch.int32, device=dev)
     for e in range(1, 4):
         bs_h[:, :, e - 1, :] = 2 * (nz[:, :, e - 1, :] | nz[:, :, e, :])
+
+    if intra_mb is not None:
+        ii = intra_mb.to(torch.bool)
+        il = torch.roll(ii, 1, dims=1)
+        il[:, 0] = False
+        # MB-boundary vertical edge: either side intra -> 4
+        bs_v[:, :, 0, :] = torch.where((ii | il)[..., None], 4,
+                                       bs_v[:, :, 0, :])
+        # internal edges of an intra MB -> 3
+        bs_v[:, :, 1:, :] = torch.where(ii[..., None, None], 3,
+                                        bs_v[:, :, 1:, :])
+        bs_h = torch.where(ii[..., None, None], 3, bs_h)
     bs_v[:, 0, 0, :] = 0              # picture-left boundary: never filtered
     return bs_v, bs_h
 
 
 def deblock_frame_rows(y, u, v, nnz44, mv_q, qp: int, qp_c: int,
-                       intra_frame: bool):
+                       intra_frame: bool, intra_mb=None):
     """Deblock a reconstructed frame under the slice-row schedule.
-    Planes uint8; returns the filtered (y, u, v) uint8 planes."""
+    Planes uint8; returns the filtered (y, u, v) uint8 planes.
+    intra_mb: optional (mbh, mbw) bool mask of Intra_16x16 MBs in a P
+    frame (see compute_bs)."""
     h, w = y.shape
     mbh, mbw = h // 16, w // 16
     dev = y.device
@@ -194,7 +211,7 @@ def deblock_frame_rows(y, u, v, nnz44, mv_q, qp: int, qp_c: int,
     tc0_row = torch.as_tensor(TC0[qp], device=dev)
     tc0_row_c = torch.as_tensor(TC0[qp_c], device=dev)
 
-    bs_v, bs_h = compute_bs(nnz44, mv_q, intra_frame)
+    bs_v, bs_h = compute_bs(nnz44, mv_q, intra_frame, intra_mb)
 
     ymb = y.to(torch.int32).reshape(mbh, 16, mbw, 16).transpose(1, 2)
     umb = u.to(torch.int32).reshape(mbh, 8, mbw, 8).transpose(1, 2)

@@ -1,21 +1,32 @@
 """Inter-frame (P) encoding compute path (torch): motion estimation,
 motion compensation and residual coding.
 
-Port of ceracoder_tpu/ops/inter.py for all-inter P frames
-(`intra_in_p=False`; the Intra_16x16 fallback is CABAC-only and waits
-for the CABAC slice). P_L0_16x16, one reference (the previous recon),
+Port of ceracoder_tpu/ops/inter.py. P_L0_16x16, one reference (the
+previous recon),
 quarter-pel MVs from a coarse search on 4x-pooled planes, a full-pel
 refine, and a 49-way sub-pel stage over the spec's half/quarter-sample
 planes (spec 8.4.2.2.1); chroma by the spec's eighth-pel bilinear
 (8.4.2.2.2). The dense select-warps of the reference are kept as they
 are: they give the same candidate order, so `argmin` ties (first
 minimum, as in jnp) resolve identically.
+
+With `intra_in_p=True` (the CABAC path's default) P frames also carry
+Intra_16x16 fallback MBs (`_intra_fallback`). The JAX package enters
+the fallback's column scan only when the frame has an intra MB
+(`lax.cond`); torch has no branch on the device, and asking the host
+(`bool(is_intra.any())`) would wait for the frame's motion search in
+the middle of a run's launches. Every result of the scan is masked by
+`is_intra`, so running it always gives the same outputs: the port
+always runs it, mbw more `_encode_mb_col` steps per P frame, and never
+synchronizes. A persistent kernel per MB row (ROADMAP.md §2) would take
+these launches away together with the deblock's and the IDR's.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ceracoder_tpu_torch.ops.intra import _OUT_DTYPES, _encode_mb_col
 from ceracoder_tpu_torch.ops.transform import (
     dequant4,
     dequant_dc2,
@@ -244,15 +255,9 @@ def _mc_chroma_dense(ref_c32, cmv, mv_q):
             + (8 - xf) * yf * c + xf * yf * d + 32) >> 6
 
 
-def encode_frame_p(y, u, v, ref_y, ref_u, ref_v, qp: int, qp_c: int):
-    """Encode an all-inter P frame (P_L0_16x16, quarter-pel MVs,
-    previous-frame reference).
-
-    Returns per-MB arrays with the reference's keys and dtypes: mv
-    (mbh,mbw,2) int32 quarter-pel (dy, dx), sad, luma_levels
-    (mbh,mbw,4,4,16) int16 (zigzag), dc_chroma (mbh,mbw,2,4), ac_chroma
-    (mbh,mbw,2,2,2,15), recon (y, u, v) uint8 planes.
-    """
+def _encode_frame_p_inter(y, u, v, ref_y, ref_u, ref_v, qp: int,
+                         qp_c: int):
+    """All-inter P frame core (see encode_frame_p)."""
     h, w = y.shape
     mbh, mbw = h // 16, w // 16
 
@@ -290,3 +295,100 @@ def encode_frame_p(y, u, v, ref_y, ref_u, ref_v, qp: int, qp_c: int):
         ac_chroma=torch.stack([ac_u, ac_v], dim=2).to(torch.int16),
         recon=(unmb(recon_y, 16), unmb(rec_u, 8), unmb(rec_v, 8)),
     )
+
+
+def _intra_fallback(y, u, v, outs, qp: int, qp_c: int):
+    """Add Intra_16x16 fallback MBs to an all-inter P frame.
+
+    Decision (source pixels): an MB goes intra when the best left-only
+    intra predictor (H or DC) beats the chosen inter prediction's SAD
+    by >= 1/8 (the margin stands in for the intra mode's larger header
+    cost). Coding: a loop over MB columns, batched over MB rows, recodes
+    every MB with ops/intra.py's `_encode_mb_col` against the true
+    decoded left columns; the carry hands forward the SELECTED
+    reconstruction (intra where chosen, the inter recon elsewhere),
+    which is the decoder's neighbour state. The loop runs whether or
+    not the frame has an intra MB (module docstring); its results count
+    only where `is_intra`."""
+    h, w = y.shape
+    mbh, mbw = h // 16, w // 16
+    dev = y.device
+    y32 = y.to(torch.int32)
+    cur = _mb_view(y32)                              # (mbh,mbw,16,16)
+
+    # source-pixel intra estimate: left-neighbour H and DC predictors
+    redge = y32[:, 15::16]                           # (h, mbw) right edges
+    lcols = torch.cat([torch.full((h, 1), 128, dtype=torch.int32,
+                                  device=dev), redge[:, :-1]], dim=1)
+    lmb = lcols.reshape(mbh, 16, mbw).transpose(1, 2)  # (mbh,mbw,16)
+    sad_h = (cur - lmb[..., :, None]).abs().sum((-1, -2))
+    dc = (lmb.sum(-1) + 8) >> 4
+    sad_dc = (cur - dc[..., None, None]).abs().sum((-1, -2))
+    is_intra = 8 * torch.minimum(sad_h, sad_dc) < 7 * outs["sad"]
+
+    umb = _mb_view(u.to(torch.int32), 8)
+    vmb = _mb_view(v.to(torch.int32), 8)
+    ry_mb = _mb_view(outs["recon"][0])
+    ru_mb = _mb_view(outs["recon"][1], 8)
+    rv_mb = _mb_view(outs["recon"][2], 8)
+
+    ly = torch.full((mbh, 16), 128, dtype=torch.int32, device=dev)
+    lu = torch.full((mbh, 8), 128, dtype=torch.int32, device=dev)
+    lv = torch.full((mbh, 8), 128, dtype=torch.int32, device=dev)
+    cols = []
+    for c in range(mbw):
+        out, (nly, nlu, nlv) = _encode_mb_col(cur[:, c], umb[:, c],
+                                              vmb[:, c], ly, lu, lv, qp,
+                                              qp_c)
+        m1 = is_intra[:, c, None]
+        ly = torch.where(m1, nly, ry_mb[:, c, :, 15].to(torch.int32))
+        lu = torch.where(m1, nlu, ru_mb[:, c, :, 7].to(torch.int32))
+        lv = torch.where(m1, nlv, rv_mb[:, c, :, 7].to(torch.int32))
+        cols.append(out)
+    iouts = {k: torch.stack([o[k] for o in cols], dim=1) for k in cols[0]}
+
+    m = is_intra
+    m2 = m[..., None, None]
+
+    def unmb(x, mb):
+        return x.transpose(1, 2).reshape(mbh * mb, mbw * mb)
+
+    def sel(key, inter):
+        return torch.where(m2, iouts[key].to(torch.uint8), inter)
+
+    keep = (~m).to(torch.int16)
+    outs = dict(outs)
+    outs["recon"] = (unmb(sel("recon_y", ry_mb), 16),
+                     unmb(sel("recon_u", ru_mb), 8),
+                     unmb(sel("recon_v", rv_mb), 8))
+    outs["mv"] = outs["mv"] * (~m)[..., None]
+    outs["luma_levels"] = outs["luma_levels"] * keep[..., None, None, None]
+    dcc = iouts["dc_chroma"].to(torch.int16)
+    acc = iouts["ac_chroma"].to(torch.int16)
+    outs["dc_chroma"] = torch.where(m[..., None, None], dcc,
+                                    outs["dc_chroma"])
+    outs["ac_chroma"] = torch.where(m[..., None, None, None, None], acc,
+                                    outs["ac_chroma"])
+    outs["is_intra"] = m
+    for k in ("mode_luma", "mode_chroma", "dc_luma", "ac_luma"):
+        o = iouts[k].to(_OUT_DTYPES[k])
+        outs[k] = o * m.reshape(*m.shape, *([1] * (o.dim() - 2)))
+    return outs
+
+
+def encode_frame_p(y, u, v, ref_y, ref_u, ref_v, qp: int, qp_c: int,
+                   intra_in_p: bool = False):
+    """Encode a P frame (P_L0_16x16 + optional Intra_16x16 fallback,
+    quarter-pel MVs, previous-frame reference).
+
+    Returns per-MB arrays with the reference's keys and dtypes: mv
+    (mbh,mbw,2) int32 quarter-pel (dy, dx), sad, luma_levels
+    (mbh,mbw,4,4,16) int16 (zigzag), dc_chroma (mbh,mbw,2,4), ac_chroma
+    (mbh,mbw,2,2,2,15), recon (y, u, v) uint8 planes; with intra_in_p
+    also is_intra, mode_luma, mode_chroma, dc_luma and ac_luma (zeroed
+    at inter MBs).
+    """
+    outs = _encode_frame_p_inter(y, u, v, ref_y, ref_u, ref_v, qp, qp_c)
+    if not intra_in_p:
+        return outs
+    return _intra_fallback(y, u, v, outs, qp, qp_c)

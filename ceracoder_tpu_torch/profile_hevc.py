@@ -29,9 +29,7 @@ from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
 from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
 from ceracoder_tpu_torch.codec.h265.intra import chroma_qp
 from ceracoder_tpu_torch.ops import h265 as ops
-from ceracoder_tpu_torch.profile_h264 import time_stage
-
-STAT_KEYS = ("host_ms", "launches", "device_ms")
+from ceracoder_tpu_torch.profile_h264 import STAT_KEYS, stage_total, time_stage
 
 
 def _timer(st: dict):
@@ -72,11 +70,9 @@ def profile_frames(width: int, height: int, p_frames: int) -> list[dict]:
                           lambda: enc._rows_to_host([out["packed"]])(), st)
         frame = time_stage("entropy", lambda: enc._make_run_pending(
             out, lambda: host, 0, idr, qp, i, cap, chunk).result(), st)
-        total = {k: sum(s[k] for s in st.values()) for k in STAT_KEYS}
-        total["device_idle_share"] = 1 - total["device_ms"] / total["host_ms"]
         rows.append({"frame": i, "type": "IDR" if idr else "P",
                      "bytes": len(frame.data), "stages": st,
-                     "total": total})
+                     "total": stage_total(st)})
         if not idr:
             rows[-1]["motion_detail"] = detail
     return rows
@@ -90,11 +86,9 @@ def mean_p(rows: list[dict]) -> dict:
                        for k in STAT_KEYS} for name in ps[0][key]}
 
     stages = mean("stages")
-    total = {k: sum(s[k] for s in stages.values()) for k in STAT_KEYS}
-    total["device_idle_share"] = 1 - total["device_ms"] / total["host_ms"]
     return {"frame": "mean", "type": f"P (mean of {len(ps)})",
             "bytes": sum(r["bytes"] for r in ps) / len(ps),
-            "stages": stages, "total": total,
+            "stages": stages, "total": stage_total(stages),
             "motion_detail": mean("motion_detail")}
 
 

@@ -7,6 +7,7 @@ caller asks for the CPU (the tests do).
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -26,3 +27,14 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return dev
+
+
+def upload(plane, device: torch.device) -> torch.Tensor:
+    """A host plane (numpy array or tensor) on `device`. To a card it
+    goes from pinned memory without blocking: a copy from pageable
+    memory waits for all device work already queued."""
+    if not isinstance(plane, torch.Tensor):
+        plane = torch.as_tensor(np.asarray(plane))
+    if device.type == "cuda" and plane.device.type == "cpu":
+        return plane.pin_memory().to(device, non_blocking=True)
+    return plane.to(device)

@@ -6,6 +6,9 @@ Each library the port needs is compiled in place, alone, with g++ into
 
 - ``hevc_entropy``: the HEVC entropy stage (``hevc_entropy.cc`` with its
   table include ``hevc_tables.inc``);
+- ``h264_cabac``: the H.264 CABAC row coder (``h264_cabac.cc``, which
+  includes ``hevc_tables.inc`` for the shared arithmetic-coder tables
+  and ``h264_tables.inc`` for its context tables);
 - ``balancer``: the rate-control core (``balancer.cc``);
 - ``audio_enc``: the AAC / Opus encoder shim (``audio_enc.cc``, with
   ``mpegts.cc`` for the output buffer it writes into), linked with
@@ -53,6 +56,8 @@ class NativeLib:
 
 LIBRARIES = {
     "hevc_entropy": NativeLib(("hevc_entropy.cc",), ("hevc_tables.inc",)),
+    "h264_cabac": NativeLib(("h264_cabac.cc",),
+                            ("hevc_tables.inc", "h264_tables.inc")),
     "balancer": NativeLib(("balancer.cc",)),
     "audio_enc": NativeLib(("audio_enc.cc", "mpegts.cc"),
                            link=("-lavcodec", "-lavutil")),
@@ -121,6 +126,28 @@ def load_hevc_entropy() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p,              # intra/mode
         ctypes.c_void_p, ctypes.c_void_p,              # mv, mv1
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # levels y/cb/cr
+        ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,   # out/cap/sizes
+        ctypes.c_int,                                  # n_threads
+    ]
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def load_h264_cabac() -> ctypes.CDLL:
+    """Build (if needed) and load the H.264 CABAC row coder, once per
+    process, with `h264_cabac_rows` declared (signature of
+    native/src/h264_cabac.cc)."""
+    lib = ctypes.CDLL(str(build_library("h264_cabac")))
+    lib.h264_cabac_rows.restype = ctypes.c_int64
+    lib.h264_cabac_rows.argtypes = [
+        ctypes.c_int, ctypes.c_int,                    # mbh, mbw
+        ctypes.c_int, ctypes.c_int, ctypes.c_int,      # intra, idc, qp
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # hdr b/sz/stride
+        ctypes.c_void_p, ctypes.c_void_p,              # mode_l, mode_c
+        ctypes.c_void_p, ctypes.c_void_p,              # dc_luma, ac_luma
+        ctypes.c_void_p, ctypes.c_void_p,              # skip, mvd
+        ctypes.c_void_p,                               # luma_lv
+        ctypes.c_void_p, ctypes.c_void_p,              # dc/ac chroma
         ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,   # out/cap/sizes
         ctypes.c_int,                                  # n_threads
     ]

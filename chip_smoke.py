@@ -44,11 +44,31 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    pack + send, timed by wrapping those calls here, not in the app;
 9. app GPU equals CPU: one 320x192 job through CeracoderApp on cuda and
    on cpu gives identical TS bytes, for the host-source run loop (run =
-   4), the per-frame loop (run = 1) and the device-source run loop.
+   4), the per-frame loop (run = 1) and the device-source run loop, for
+   codec = hevc and codec = h264;
+10. H.264 CABAC main path: H264Encoder(1920, 1088, qp=28, gop=60) with
+   its defaults (CABAC, intra-in-P) on the device test pattern, 3 runs
+   of 10 frames through encode_run_async; checks the GOP structure, one
+   NAL unit per MB row, the recon shapes and that K1 is launched 0
+   times; prints frames/s, bytes per IDR and mean P frame, intra MBs per
+   P frame (read off the unpacked rows), fallback frames, peak device
+   memory, and the CUDA launches and device ms of one more P frame
+   (torch.profiler);
+11. CABAC GPU equals CPU: 320x192 on the device source (6 frames, gop
+   4, two runs) and on host frames whose bottom half changes to new
+   content mid-clip (so both code intra MBs in P slices, which is
+   checked), and the first 1080p IDR + P frame, byte-identical;
+12. the H.264 product loop: CeracoderApp on jobs/h264_test_1080p30 (host
+   test pattern 1920x1080, burn-in, codec h264, gop 60, runs of 8), the
+   fixed balancer, loopback SRT (UDP where libsrt does not load), the
+   stall watchdog off; 8 warm-up frames, then 16 timed. Checks the
+   payloads, continuity, keyframes and that K1 is launched 0 times;
+   prints emit-to-emit frames/s, the host seconds as phase 8 and the
+   longest time the watchdog's position stood still.
 
-The native libraries (native/src: the HEVC entropy stage, the balancer
-core and, where the libavcodec headers are, the audio shim; g++) are
-built in phase 2 beside the kernels.
+The native libraries (native/src: the HEVC entropy stage, the H.264
+CABAC row coder, the balancer core and, where the libavcodec headers
+are, the audio shim; g++) are built in phase 2 beside the kernels.
 
 The last lines are the nvidia-smi line, a JSON line of kernel numbers
 and the result line {"ok": true, "device": {...}}. It prints no result
@@ -161,7 +181,7 @@ def build_kernels(tag: str) -> None:
     from ceracoder_tpu_torch.utils import host_build
     from ceracoder_tpu_torch.utils.cuda_build import build_library
 
-    native_libs = ["hevc_entropy", "balancer"]
+    native_libs = ["hevc_entropy", "h264_cabac", "balancer"]
     if host_build.have_avcodec():
         native_libs.append("audio_enc")
     t0 = time.perf_counter()
@@ -463,17 +483,20 @@ def phase_main_path(tag: str) -> dict:
 
 
 def encode_stream(device: str, w: int, h: int, runs, gop: int, qp: int,
-                  texture: int) -> bytes:
+                  texture: int, cabac: bool = False, frames=None) -> bytes:
+    """H.264 runs of the device test pattern, or of host `frames`."""
     from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
     from ceracoder_tpu_torch.codec.h264.encoder import H264Encoder
 
     src = DeviceTestPatternSource(w, h, texture=texture, device=device)
-    enc = H264Encoder(w, h, qp=qp, gop=gop, cabac=False, device=device)
+    enc = H264Encoder(w, h, qp=qp, gop=gop, cabac=cabac, device=device)
     data = enc.headers()
     for idx in runs:
-        data += b"".join(p.result().data
-                         for p in enc.encode_run_async(source=src,
-                                                       indices=idx))
+        if frames is None:
+            pend = enc.encode_run_async(source=src, indices=idx)
+        else:
+            pend = enc.encode_run_async([frames[i] for i in idx])
+        data += b"".join(p.result().data for p in pend)
     return data
 
 
@@ -610,6 +633,183 @@ def phase_hevc_gpu_equals_cpu(tag: str, main: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# H.264 CABAC main path and GPU-vs-CPU
+# ---------------------------------------------------------------------------
+
+class IntraCount:
+    """Counts the intra MBs of each P frame that the CABAC encoder codes
+    from its transfer rows, by wrapping cabac_run.unpack_syntax."""
+
+    def __init__(self):
+        from ceracoder_tpu_torch.codec.h264 import cabac_run
+
+        self.mod, self.real = cabac_run, cabac_run.unpack_syntax
+        self.per_p = []
+
+        def unpack(row, get_chunk, f, mbh, mbw, intra, *a):
+            nnz, arrays = self.real(row, get_chunk, f, mbh, mbw, intra, *a)
+            if not intra and arrays is not None:
+                self.per_p.append(int(arrays["is_intra"].sum()))
+            return nnz, arrays
+        cabac_run.unpack_syntax = unpack
+
+    def close(self):
+        self.mod.unpack_syntax = self.real
+
+
+def kernel_launches(fn) -> tuple[int, float]:
+    """CUDA kernel launches and their device ms in one call of fn()
+    (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+
+
+def phase_cabac_main_path(tag: str) -> dict:
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+    from ceracoder_tpu_torch.codec.h264.encoder import H264Encoder
+    from ceracoder_tpu_torch.ops.bitpack import merge_windows
+
+    w, h, runs, run_len = 1920, 1088, 3, 10
+    src = DeviceTestPatternSource(w, h, texture=6)
+    enc = H264Encoder(w, h, qp=28, gop=60)
+    check(enc.cabac and enc.intra_in_p, "H264Encoder defaults")
+    intra = IntraCount()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    merge_windows.launches = 0
+    frames, run_secs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(runs):
+            t = time.perf_counter()
+            pend = enc.encode_run_async(
+                source=src, indices=range(r * run_len, (r + 1) * run_len))
+            frames += [p.result() for p in pend]
+            torch.cuda.synchronize()
+            run_secs.append(time.perf_counter() - t)
+        secs = time.perf_counter() - t0
+        launches = merge_windows.launches
+        peak = torch.cuda.max_memory_allocated()
+        # one more P frame, under the profiler: its kernel launches
+        n = runs * run_len
+        p_launches, p_device_ms = kernel_launches(
+            lambda: enc.encode_run_async(source=src,
+                                         indices=[n])[0].result())
+    finally:
+        intra.close()
+    nf = runs * run_len
+    check(len(frames) == nf, "frame count")
+    check([f.keyframe for f in frames] == [True] + [False] * (nf - 1),
+          "GOP structure (1 IDR + P frames)")
+    for f in frames:
+        check_stream(f.data, h // 16)
+    rec = frames[-1].recon
+    check(rec[0].shape == (h, w) and rec[1].shape == (h // 2, w // 2)
+          and rec[2].shape == (h // 2, w // 2), "recon shapes")
+    check(launches == 0, f"K1 launched {launches} times on the CABAC path")
+    check(len(intra.per_p) >= nf - 1 - enc.fallback_frames,
+          "intra MB counts of the P frames")
+    sizes = [len(f.data) for f in frames]
+    per_p = intra.per_p[:nf - 1]
+    out = {
+        "frames": nf, "seconds": secs, "fps": nf / secs,
+        "fps_runs_2_3": 2 * run_len / sum(run_secs[1:]),
+        "run_seconds": run_secs,
+        "bytes_idr": sizes[0], "bytes_p_mean": sum(sizes[1:]) / (nf - 1),
+        "intra_mbs_per_p_mean": sum(per_p) / max(1, len(per_p)),
+        "intra_mbs_per_p_min": min(per_p, default=0),
+        "intra_mbs_per_p_max": max(per_p, default=0),
+        "fallback_frames": enc.fallback_frames, "k1_launches": launches,
+        "launches_per_p_frame": p_launches,
+        "device_ms_per_p_frame": p_device_ms,
+        "peak_mem_bytes": peak,
+        "first_two": b"".join(f.data for f in frames[:2]),
+    }
+    print(f"{tag} CABAC main path 1080p: {nf} frames in {secs:.3f} s "
+          f"= {out['fps']:.3f} frames/s (runs 2-3: "
+          f"{out['fps_runs_2_3']:.3f} frames/s; per run "
+          f"{', '.join(f'{s:.3f}' for s in run_secs)} s)")
+    print(f"{tag} CABAC main path bytes/frame: IDR {out['bytes_idr']}, P "
+          f"mean {out['bytes_p_mean']:.1f}; intra MBs per P frame mean "
+          f"{out['intra_mbs_per_p_mean']:.2f}, min "
+          f"{out['intra_mbs_per_p_min']}, max "
+          f"{out['intra_mbs_per_p_max']} (of {(h // 16) * (w // 16)}); "
+          f"fallback frames {out['fallback_frames']}; K1 launches "
+          f"{launches}; peak device memory {peak} B; one more P frame: "
+          f"{p_launches} CUDA launches, {p_device_ms:.3f} device ms")
+    return out
+
+
+def uncover_frames(w: int, h: int, n: int, seed: int = 8):
+    """Host frames of 8x8 blocks of random grey that brighten slowly,
+    whose bottom half switches to a smooth new gradient from frame 2:
+    inter prediction fails there and left-only intra predicts well, so
+    P slices code intra MBs (the idea of the JAX suite's
+    _uncover_frames, with content sparse enough for the compacted
+    transfer)."""
+    rng = np.random.default_rng(seed)
+    blocks = rng.integers(30, 220, (h // 8, w // 8)).astype(np.float32)
+    base = np.kron(blocks, np.ones((8, 8), np.float32))
+    yy, xx = np.mgrid[0:h, 0:w]
+    frames = []
+    for i in range(n):
+        y = base * 0.5 + 40 + i * 2
+        if i >= 2:
+            y[h // 2:] = 150 + xx[h // 2:] * 0.2 + yy[h // 2:] * 0.1
+        y = np.clip(y, 0, 255).astype(np.uint8)
+        u = ((xx[::2, ::2] + yy[::2, ::2]) % 60 + 100).astype(np.uint8)
+        v = np.full((h // 2, w // 2), 120 + i, np.uint8)
+        frames.append((y, u, v))
+    return frames
+
+
+def phase_cabac_gpu_equals_cpu(tag: str, main: dict) -> None:
+    runs = [range(0, 3), range(3, 6)]
+    t = time.perf_counter()
+    gpu = encode_stream("cuda", 320, 192, runs, 4, 30, 6, cabac=True)
+    cpu = encode_stream("cpu", 320, 192, runs, 4, 30, 6, cabac=True)
+    check(gpu == cpu, "CABAC 320x192 GPU and CPU streams differ")
+    print(f"{tag} CABAC GPU == CPU at 320x192, device source, 6 frames, "
+          f"gop 4, 2 runs: {len(gpu)} B identical "
+          f"({time.perf_counter() - t:.2f} s)")
+    t = time.perf_counter()
+    frames = uncover_frames(320, 192, 6)
+    counts = {}
+    for device in ("cuda", "cpu"):
+        intra = IntraCount()
+        try:
+            counts[device] = (encode_stream(device, 320, 192, runs, 6, 28,
+                                            6, cabac=True, frames=frames),
+                              intra.per_p)
+        finally:
+            intra.close()
+    check(counts["cuda"] == counts["cpu"],
+          "CABAC 320x192 host frames with intra MBs: GPU and CPU differ")
+    check(sum(counts["cuda"][1]) > 0, "no intra MB coded in a P slice")
+    print(f"{tag} CABAC GPU == CPU at 320x192, host frames with new "
+          f"content, 6 frames, gop 6, 2 runs: {len(counts['cuda'][0])} B "
+          f"identical, intra MBs per P frame {counts['cuda'][1]} "
+          f"({time.perf_counter() - t:.2f} s)")
+    t = time.perf_counter()
+    cpu2 = encode_stream("cpu", 1920, 1088, [range(2)], 60, 28, 6,
+                         cabac=True)
+    from ceracoder_tpu_torch.codec.h264.encoder import H264Encoder
+    hdr = H264Encoder(1920, 1088, qp=28, gop=60, device="cpu").headers()
+    check(cpu2 == hdr + main["first_two"],
+          "CABAC 1080p IDR + P frame: GPU and CPU bytes differ")
+    print(f"{tag} CABAC GPU == CPU at 1920x1088, first IDR + P frame: "
+          f"{len(main['first_two'])} B identical (CPU run "
+          f"{time.perf_counter() - t:.2f} s)")
+
+
+# ---------------------------------------------------------------------------
 # The product loop (CeracoderApp) and app GPU-vs-CPU
 # ---------------------------------------------------------------------------
 
@@ -709,20 +909,25 @@ class LoopbackListener:
         self.thread.join(timeout=5)
 
 
-def watchdog_gap(app, stop) -> float:
+def watchdog_gap(app, stop) -> tuple[float, dict]:
     """The longest time the stall watchdog's position stood still after
-    its first move, sampled every 5 ms until `stop`. The watchdog arms
-    at the first move and fires when two checks 1 s apart see the same
+    its first move, sampled every 5 ms until `stop`, and where it
+    began (frames collected, launched and sent). The watchdog arms at
+    the first move and fires when two checks 1 s apart see the same
     position, so a gap over 1 s can trip it."""
-    last, since, longest = app._position(), None, 0.0
+    def where():
+        return {"collected": app.frames_collected,
+                "launched": app.encoder.frames_launched,
+                "sent": app.frames_sent}
+    last, since, longest, at, start = app._position(), None, 0.0, {}, {}
     while not stop.is_set():
         time.sleep(0.005)
         pos, now = app._position(), time.perf_counter()
         if pos != last:
-            if since is not None:
-                longest = max(longest, now - since)
-            last, since = pos, now
-    return longest
+            if since is not None and now - since > longest:
+                longest, at = now - since, start
+            last, since, start = pos, now, where()
+    return longest, at
 
 
 class Timed:
@@ -745,20 +950,19 @@ class Timed:
         return timed
 
 
-def phase_app_loop(tag: str, tmpdir) -> dict:
+def run_app_loop(job, warm: int, timed_frames: int, want_keys: list):
+    """CeracoderApp on `job`, fixed balancer, latency 2000 ms, realtime,
+    to a loopback listener, the stall watchdog off; `warm` frames, then
+    `timed_frames` timed emit to emit. Checks and returns the numbers
+    phases 8 and 12 print."""
     from ceracoder_tpu_torch.app.cli import CliOptions
     from ceracoder_tpu_torch.app.main import CeracoderApp
     from ceracoder_tpu_torch.ops.bitpack import merge_windows
 
-    job = tmpdir / "app_1080p60.ini"
-    job.write_text(f"[source]\nkind = devtest\nwidth = {APP_W}\n"
-                   f"height = {APP_H}\nfps = {APP_FPS}\n\n[encode]\n"
-                   f"codec = hevc\ngop = {APP_GOP}\nrun = {APP_RUN}\n\n"
-                   "[audio]\nkind = tone\nbitrate = 128\n")
     listener = LoopbackListener()
     opts = CliOptions(job_file=str(job), addr=listener.addr,
                       port=listener.port, latency=2000, balancer="fixed")
-    total = APP_WARM + APP_TIMED
+    total = warm + timed_frames
     app = CeracoderApp(opts, max_frames=total, realtime=True)
     # as bench.py's full loop: the stall watchdog would read the first
     # 1080p IDR run (seconds of launches, no frame sent) as a wedge
@@ -790,7 +994,7 @@ def phase_app_loop(tag: str, tmpdir) -> dict:
         keys.append(frame.keyframe)
         emit(frame, fpts, pacer)
         emits.append(time.perf_counter())
-        timed.on = len(emits) >= APP_WARM
+        timed.on = len(emits) >= warm
     app._emit_frame = emit_and_time
 
     torch.cuda.synchronize()
@@ -805,50 +1009,83 @@ def phase_app_loop(tag: str, tmpdir) -> dict:
         finally:
             stop.set()
             listener.close()
-        gap = watch.result()
+        gap, gap_at = watch.result()
     secs = time.perf_counter() - t0
     launches = merge_windows.launches
     check(rc == 0, f"app exited {rc}")
     check(len(emits) == total, f"{len(emits)} frames emitted, want {total}")
-    window = emits[-1] - emits[APP_WARM - 1]
+    window = emits[-1] - emits[warm - 1]
     packets = check_ts_payloads(payloads)
-    check([i for i, k in enumerate(keys) if k] == [0, 60, 120],
-          f"keyframes at {[i for i, k in enumerate(keys) if k]}")
+    check([i for i, k in enumerate(keys) if k] == want_keys,
+          f"keyframes at {[i for i, k in enumerate(keys) if k]}, want "
+          f"{want_keys}")
     check(launches == 0, f"K1 launched {launches} times in the app loop")
     check(listener.nbytes > 0 or listener.kind == "srt",
           "the UDP listener received nothing")
     check(listener.sizes <= {1316}, f"received sizes {listener.sizes}")
-    out = {
-        "frames": total, "timed_frames": APP_TIMED,
-        "fps": APP_TIMED / window, "timed_seconds": window,
+    return {
+        "frames": total, "timed_frames": timed_frames,
+        "fps": timed_frames / window, "timed_seconds": window,
         "seconds_total": secs,
         "host_seconds": {k: v for k, v in timed.secs.items()},
-        "longest_watchdog_gap_s": gap,
+        "longest_watchdog_gap_s": gap, "longest_gap_began_at": gap_at,
         "bytes_sent": sum(map(len, payloads)), "payloads": len(payloads),
         "ts_packets": packets, "bytes_received": listener.nbytes,
         "transport": listener.kind, "audio": app.audio is not None,
         "fallback_frames": app.encoder.fallback_frames,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "k1_launches": launches,
-        "job": {"kind": "devtest", "width": APP_W, "height": APP_H,
-                "fps": APP_FPS, "codec": "hevc", "gop": APP_GOP,
-                "run": APP_RUN, "audio": "tone 128 kbps",
-                "balancer": "fixed", "latency_ms": 2000,
-                "realtime": True},
     }
-    print(f"{tag} app loop {APP_W}x{APP_H} at {APP_FPS} frames/s, HEVC "
-          f"over {listener.kind} (audio "
-          f"{'AAC tone' if out['audio'] else 'off: no AAC encoder'}): "
-          f"{APP_TIMED} timed frames at {out['fps']:.3f} frames/s "
-          f"emit to emit ({window:.3f} s; {secs:.3f} s for all {total}); "
-          f"host s in the window: " + ", ".join(
+
+
+def print_app_loop(tag: str, label: str, out: dict) -> None:
+    print(f"{tag} {label} over {out['transport']} (audio "
+          f"{'AAC tone' if out['audio'] else 'off'}): "
+          f"{out['timed_frames']} timed frames at {out['fps']:.3f} "
+          f"frames/s emit to emit ({out['timed_seconds']:.3f} s; "
+          f"{out['seconds_total']:.3f} s for all {out['frames']}); host s "
+          f"in the window: " + ", ".join(
               f"{k} {v:.3f}" for k, v in out["host_seconds"].items()))
-    print(f"{tag} app loop sent {out['bytes_sent']} B in {len(payloads)} "
-          f"payloads of 1316 B ({packets} TS packets, continuity "
-          f"unbroken), received {listener.nbytes} B; keyframes at 0, 60, "
-          f"120; K1 launches 0; peak device memory "
-          f"{out['peak_mem_bytes']} B; longest time the stall watchdog's "
-          f"position stood still after it moved: {gap:.3f} s")
+    print(f"{tag} {label} sent {out['bytes_sent']} B in {out['payloads']} "
+          f"payloads of 1316 B ({out['ts_packets']} TS packets, continuity "
+          f"unbroken), received {out['bytes_received']} B; fallback frames "
+          f"{out['fallback_frames']}; K1 launches {out['k1_launches']}; "
+          f"peak device memory {out['peak_mem_bytes']} B; longest time "
+          f"the stall watchdog's position stood still after it moved: "
+          f"{out['longest_watchdog_gap_s']:.3f} s, from frames "
+          f"{out['longest_gap_began_at']}")
+
+
+def phase_app_loop(tag: str, tmpdir) -> dict:
+    job = tmpdir / "app_1080p60.ini"
+    job.write_text(f"[source]\nkind = devtest\nwidth = {APP_W}\n"
+                   f"height = {APP_H}\nfps = {APP_FPS}\n\n[encode]\n"
+                   f"codec = hevc\ngop = {APP_GOP}\nrun = {APP_RUN}\n\n"
+                   "[audio]\nkind = tone\nbitrate = 128\n")
+    out = run_app_loop(job, APP_WARM, APP_TIMED, [0, 60, 120])
+    out["job"] = {"kind": "devtest", "width": APP_W, "height": APP_H,
+                  "fps": APP_FPS, "codec": "hevc", "gop": APP_GOP,
+                  "run": APP_RUN, "audio": "tone 128 kbps",
+                  "balancer": "fixed", "latency_ms": 2000,
+                  "realtime": True}
+    print_app_loop(tag, f"app loop {APP_W}x{APP_H} at {APP_FPS} frames/s, "
+                   "HEVC (keyframes 0, 60, 120)", out)
+    return out
+
+
+H264_APP_JOB = ROOT / "jobs" / "h264_test_1080p30"
+H264_APP_WARM, H264_APP_TIMED = 8, 16
+
+
+def phase_h264_app_loop(tag: str) -> dict:
+    out = run_app_loop(H264_APP_JOB, H264_APP_WARM, H264_APP_TIMED, [0])
+    out["job"] = {"file": "jobs/h264_test_1080p30",
+                  "text": H264_APP_JOB.read_text(), "run": 8,
+                  "balancer": "fixed", "latency_ms": 2000,
+                  "realtime": True}
+    print_app_loop(tag, "H.264 app loop, jobs/h264_test_1080p30 (test "
+                   "pattern 1920x1080 at 30 frames/s, CABAC, gop 60, "
+                   "runs of 8; keyframe 0)", out)
     return out
 
 
@@ -863,18 +1100,20 @@ def app_ts(device: str, job, out) -> bytes:
 
 
 def phase_app_gpu_equals_cpu(tag: str, tmpdir) -> None:
-    for kind, run in (("test", 4), ("test", 1), ("devtest", 4)):
-        job = tmpdir / f"app_{kind}_{run}.ini"
-        job.write_text(f"[source]\nkind = {kind}\nwidth = 320\n"
-                       "height = 192\nfps = 30\n\n[encode]\ncodec = hevc\n"
-                       f"gop = 8\nrun = {run}\n")
-        t = time.perf_counter()
-        gpu = app_ts("cuda", job, tmpdir / "gpu.ts")
-        cpu = app_ts("cpu", job, tmpdir / "cpu.ts")
-        check(gpu == cpu, f"app {kind} run={run}: GPU and CPU TS differ")
-        print(f"{tag} app GPU == CPU, 320x192 {kind} source, run = {run}, "
-              f"12 frames: {len(gpu)} B of TS identical "
-              f"({time.perf_counter() - t:.2f} s)")
+    for codec in ("hevc", "h264"):
+        for kind, run in (("test", 4), ("test", 1), ("devtest", 4)):
+            job = tmpdir / f"app_{codec}_{kind}_{run}.ini"
+            job.write_text(f"[source]\nkind = {kind}\nwidth = 320\n"
+                           "height = 192\nfps = 30\n\n[encode]\n"
+                           f"codec = {codec}\ngop = 8\nrun = {run}\n")
+            t = time.perf_counter()
+            gpu = app_ts("cuda", job, tmpdir / "gpu.ts")
+            cpu = app_ts("cpu", job, tmpdir / "cpu.ts")
+            check(gpu == cpu,
+                  f"app {codec} {kind} run={run}: GPU and CPU TS differ")
+            print(f"{tag} app GPU == CPU, {codec}, 320x192 {kind} source, "
+                  f"run = {run}, 12 frames: {len(gpu)} B of TS identical "
+                  f"({time.perf_counter() - t:.2f} s)")
 
 
 def main() -> int:
@@ -904,6 +1143,12 @@ def main() -> int:
         app = phase_app_loop(tag, Path(d))
         print(json.dumps({"app_loop": app}))
         phase_app_gpu_equals_cpu(tag, Path(d))
+    cabac = phase_cabac_main_path(tag)
+    phase_cabac_gpu_equals_cpu(tag, cabac)
+    print(json.dumps({"cabac_main_path": {
+        k: v for k, v in cabac.items() if k != "first_two"}}))
+    h264_app = phase_h264_app_loop(tag)
+    print(json.dumps({"h264_app_loop": h264_app}))
 
     p = k1["P"]
     kernels = [{
@@ -918,6 +1163,8 @@ def main() -> int:
         "bound_share": p["bound_share"], "library_ms": p["library_ms"],
         "library_i32_ms": p["library_i32_ms"], "design": "one-cta-per-row",
         "launches_app_loop": app["k1_launches"],
+        "launches_cabac_path": cabac["k1_launches"],
+        "launches_h264_app_loop": h264_app["k1_launches"],
     }]
     print(smi)
     print(json.dumps({"kernels": kernels}))

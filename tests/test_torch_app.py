@@ -238,12 +238,32 @@ def test_encode_frame_matches_jax():
         assert np.array_equal(a, np.asarray(b))
 
 
-def test_h264_job_raises(jobs, tmp_path):
+def test_h264_job_matches_jax_under_scripted_clock(jobs, tmp_path,
+                                                  monkeypatch):
+    """`codec = h264`: the host-source run loop with its scene cut under
+    the scripted clock and SRT trace, coded with CABAC and intra-in-P.
+    The JAX app runs its H.264 encoder on the dense host path, whose
+    bytes its suite holds equal to the fused run's and whose CPU
+    compile is far cheaper."""
+    import functools
+
+    from ceracoder_tpu.codec.h264.encoder import H264Encoder as JH264
+
     job = tmp_path / "h264.ini"
     job.write_text(Path(jobs["host"]).read_text().replace("hevc", "h264"))
-    opts = TOptions(job_file=str(job), addr=str(tmp_path / "o.ts"), port=0)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_main.CeracoderApp(opts, device="cpu")
+    monkeypatch.setattr(j_main, "H264Encoder",
+                        functools.partial(JH264, device_entropy=False))
+    data, ticks, keys = run_app(t_main, str(job), tmp_path / "port.ts",
+                                N_HOST, control=True)
+    want, want_ticks, want_keys = run_app(j_main, str(job),
+                                          tmp_path / "jax.ts", N_HOST,
+                                          control=True)
+    assert ticks == want_ticks and len(ticks) >= N_HOST - 1
+    assert keys == want_keys
+    assert [i for i, k in enumerate(keys) if k] == [0, CUT]
+    assert data == want
+    _check_ts(data)
+    assert b"\x00\x00\x00\x01\x67\x4d" in data    # Main-profile SPS
 
 
 @pytest.mark.parametrize("knob", ["bands", "gop_parallel"])
@@ -265,10 +285,9 @@ def test_parallel_knobs_raise_with_devices(jobs, tmp_path, monkeypatch,
         t_main.CeracoderApp(opts)
 
 
-def test_native_builds_happen_before_run(jobs, monkeypatch, tmp_path):
-    """Every native library the app uses is built while the app is
-    constructed, before run() can arm the stall watchdog: a first g++
-    build takes seconds with no frame sent."""
+def _builds_at_construction(job_text, monkeypatch, tmp_path):
+    """The native libraries built while CeracoderApp is constructed on
+    `job_text`, and the app."""
     import ceracoder_tpu_torch.audio as audio
     import ceracoder_tpu_torch.native as native
     import ceracoder_tpu_torch.utils.host_build as hb
@@ -280,24 +299,49 @@ def test_native_builds_happen_before_run(jobs, monkeypatch, tmp_path):
         return real(name)
     for mod in (hb, native, audio):
         monkeypatch.setattr(mod, "build_library", record)
-    loaders = (hb.load_hevc_entropy, native.load_balancer, audio.load_audio)
+    loaders = (hb.load_hevc_entropy, hb.load_h264_cabac,
+               native.load_balancer, audio.load_audio)
     for load in loaders:
         load.cache_clear()
     try:
         job = tmp_path / "audio.ini"
-        job.write_text(Path(jobs["per_frame"]).read_text()
-                       + "\n[audio]\nkind = tone\n")
+        job.write_text(job_text + "\n[audio]\nkind = tone\n")
         app = t_main.CeracoderApp(
             TOptions(job_file=str(job), addr=str(tmp_path / "o.ts"), port=0),
             device="cpu")
-        want = {"hevc_entropy", "balancer"}
-        if audio.aac_available():
-            want.add("audio_enc")
-        assert set(built) == want
-        assert (app.audio is not None) == audio.aac_available()
     finally:
         for load in loaders:
             load.cache_clear()
+    return set(built), app
+
+
+def test_native_builds_happen_before_run(jobs, monkeypatch, tmp_path):
+    """Every native library the app uses is built while the app is
+    constructed, before run() can arm the stall watchdog: a first g++
+    build takes seconds with no frame sent."""
+    import ceracoder_tpu_torch.audio as audio
+
+    built, app = _builds_at_construction(
+        Path(jobs["per_frame"]).read_text(), monkeypatch, tmp_path)
+    want = {"hevc_entropy", "balancer"}
+    if audio.aac_available():
+        want.add("audio_enc")
+    assert built == want
+    assert (app.audio is not None) == audio.aac_available()
+
+
+def test_h264_native_builds_happen_before_run(jobs, monkeypatch, tmp_path):
+    """An H.264 job builds the CABAC row coder at construction instead
+    of the HEVC entropy library."""
+    import ceracoder_tpu_torch.audio as audio
+
+    text = Path(jobs["per_frame"]).read_text().replace("hevc", "h264")
+    built, app = _builds_at_construction(text, monkeypatch, tmp_path)
+    want = {"h264_cabac", "balancer"}
+    if audio.aac_available():
+        want.add("audio_enc")
+    assert built == want
+    assert app.video_stream_type == 0x1B
 
 
 def test_watchdog_position_counts_launched_frames(jobs, tmp_path):

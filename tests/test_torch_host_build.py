@@ -32,11 +32,12 @@ def test_library_path_follows_flags_include_and_source(tmp_path,
     assert len(seen) == 4
 
 
-@pytest.mark.parametrize("name", ["balancer", "audio_enc"])
+@pytest.mark.parametrize("name", ["balancer", "audio_enc", "h264_cabac"])
 def test_app_library_keys_follow_flags_and_sources(name, tmp_path,
                                                    monkeypatch):
-    """The balancer core and the audio shim (with mpegts.cc, whose
-    output buffer it writes into, and its libavcodec link flags)."""
+    """The balancer core, the audio shim (with mpegts.cc, whose output
+    buffer it writes into, and its libavcodec link flags) and the H.264
+    CABAC row coder (with both table files h264_cabac.cc includes)."""
     lib = hb.LIBRARIES[name]
     assert hb.library_path(name) != hb.library_path("hevc_entropy")
     for f in lib.files:
@@ -74,3 +75,18 @@ def test_builds_and_declares_the_entropy_entry_point():
     assert hb.library_path("hevc_entropy").exists()
     assert lib.hevc_entropy_rows.argtypes is not None
     assert "libceracoder_native" not in lib._name
+
+
+def test_h264_cabac_key_covers_both_table_includes():
+    """h264_cabac.cc includes hevc_tables.inc (the shared arithmetic
+    coder tables) and h264_tables.inc; both are in its build key, and
+    the library builds and loads under the port's declaration."""
+    src = (hb.NATIVE_SRC / "h264_cabac.cc").read_text()
+    lib = hb.LIBRARIES["h264_cabac"]
+    for inc in ("hevc_tables.inc", "h264_tables.inc"):
+        assert f'#include "{inc}"' in src
+        assert inc in lib.includes
+    loaded = hb.load_h264_cabac()
+    assert hb.library_path("h264_cabac").exists()
+    assert loaded.h264_cabac_rows.argtypes is not None
+    assert "libceracoder_native" not in loaded._name

@@ -45,9 +45,14 @@ def test_entry_points_default_to_cuda(monkeypatch):
         H264Encoder(64, 48, cabac=False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DeviceTestPatternSource(64, 48)
-    assert H264Encoder(64, 48, device="cpu").device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="CABAC"):
-        H264Encoder(64, 48, cabac=True, device="cpu")
+    enc = H264Encoder(64, 48, device="cpu")
+    assert enc.device.type == "cpu"
+    # the JAX encoder's defaults: CABAC (Main profile) with intra-in-P
+    assert enc.cabac and enc.intra_in_p and enc.pps.cabac
+    assert enc.sps.profile_idc == 77
+    assert not H264Encoder(64, 48, cabac=False, device="cpu").intra_in_p
+    with pytest.raises(ValueError, match="intra_in_p requires cabac"):
+        H264Encoder(64, 48, cabac=False, intra_in_p=True, device="cpu")
 
 
 def test_hevc_entry_points_default_to_cuda(monkeypatch):
@@ -88,6 +93,43 @@ def test_hevc_has_no_python_entropy_fallback(monkeypatch):
             pend.result()
     finally:
         hb.load_hevc_entropy.cache_clear()
+
+
+def test_h264_has_no_python_entropy_fallback(monkeypatch):
+    """A CABAC row coder that cannot be built, or whose output buffer is
+    full, stops the encoder; nothing falls back to a Python row
+    coder."""
+    import numpy as np
+
+    import ceracoder_tpu_torch.codec.h264.cabac_assemble as ca
+    import ceracoder_tpu_torch.utils.host_build as hb
+    from ceracoder_tpu_torch.codec.h264.encoder import H264Encoder
+
+    frame = (np.full((32, 32), 90, np.uint8),
+             np.zeros((16, 16), np.uint8), np.zeros((16, 16), np.uint8))
+
+    def broken(name):
+        raise RuntimeError(f"g++ failed for {name}.cc")
+
+    hb.load_h264_cabac.cache_clear()
+    try:
+        with monkeypatch.context() as mp:
+            mp.setattr(hb, "build_library", broken)
+            (pend,) = H264Encoder(32, 32, device="cpu").encode_run_async(
+                [frame])
+            with pytest.raises(RuntimeError, match="g\\+\\+ failed"):
+                pend.result()
+    finally:
+        hb.load_h264_cabac.cache_clear()
+
+    class FullBuffer:
+        def h264_cabac_rows(self, *args):
+            return -1
+
+    monkeypatch.setattr(ca, "load_h264_cabac", lambda: FullBuffer())
+    (pend,) = H264Encoder(32, 32, device="cpu").encode_run_async([frame])
+    with pytest.raises(RuntimeError, match="output buffer"):
+        pend.result()
 
 
 def test_app_defaults_to_cuda(monkeypatch, tmp_path):
