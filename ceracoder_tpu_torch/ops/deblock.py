@@ -7,12 +7,23 @@ Python loop with a 4-column carry implementing the spec's macroblock
 raster order (a vertical MB-boundary edge filters the left MB's columns
 AFTER that MB's own horizontal edges; the carry hands those columns
 forward and the finalized values are written back into the left MB).
+
+That loop is `deblock_frame_rows_ref`, the plain version of K2
+(csrc/h264_deblock.cu: one CTA per MB row with the columns looped
+inside and the carry in shared memory). `h264_deblock_rows` launches K2
+on a CUDA tensor and runs the loop on a CPU tensor; `compute_bs` stays
+in torch.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
+
+from ceracoder_tpu_torch.utils.device import check_kernel_args
 
 # spec table 8-16 (indexed by indexA / indexB = clipped QP here)
 ALPHA = np.array([0] * 16 + [4, 4, 5, 6, 7, 8, 9, 10, 12, 13, 15, 17, 20,
@@ -32,6 +43,13 @@ TC0 = np.array(
        [4, 5, 8], [4, 6, 9], [5, 7, 10], [6, 8, 11], [6, 8, 13],
        [7, 10, 14], [8, 11, 16], [9, 12, 18], [10, 13, 20], [11, 15, 23],
        [13, 17, 25]], np.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _tc0_table(device: torch.device) -> torch.Tensor:
+    """TC0 on `device`, uploaded once (so the plain loop makes no host
+    copy and can be captured in a CUDA graph)."""
+    return torch.as_tensor(TC0, device=device)
 
 
 def _clip255(x):
@@ -200,18 +218,26 @@ def deblock_frame_rows(y, u, v, nnz44, mv_q, qp: int, qp_c: int,
     """Deblock a reconstructed frame under the slice-row schedule.
     Planes uint8; returns the filtered (y, u, v) uint8 planes.
     intra_mb: optional (mbh, mbw) bool mask of Intra_16x16 MBs in a P
-    frame (see compute_bs)."""
+    frame (see compute_bs). The bS come from `compute_bs`; the filter
+    runs in `h264_deblock_rows` (K2 on a card)."""
+    bs_v, bs_h = compute_bs(nnz44, mv_q, intra_frame, intra_mb)
+    return h264_deblock_rows(y.contiguous(), u.contiguous(), v.contiguous(),
+                             bs_v, bs_h, min(max(int(qp), 0), 51),
+                             min(max(int(qp_c), 0), 51))
+
+
+def deblock_frame_rows_ref(y, u, v, bs_v, bs_h, qp: int, qp_c: int):
+    """Plain PyTorch version of K2: the column loop, batched over MB
+    rows. y (H, W), u, v (H/2, W/2) uint8; bs_v (mbh, mbw, 4, 4) and
+    bs_h (mbh, mbw, 3, 4) int32; qp, qp_c in 0..51. Returns the filtered
+    (y, u, v) uint8 planes."""
     h, w = y.shape
     mbh, mbw = h // 16, w // 16
     dev = y.device
-    qp = min(max(int(qp), 0), 51)
-    qp_c = min(max(int(qp_c), 0), 51)
     alpha, beta = int(ALPHA[qp]), int(BETA[qp])
     alpha_c, beta_c = int(ALPHA[qp_c]), int(BETA[qp_c])
-    tc0_row = torch.as_tensor(TC0[qp], device=dev)
-    tc0_row_c = torch.as_tensor(TC0[qp_c], device=dev)
-
-    bs_v, bs_h = compute_bs(nnz44, mv_q, intra_frame, intra_mb)
+    tc0_row = _tc0_table(dev)[qp]
+    tc0_row_c = _tc0_table(dev)[qp_c]
 
     ymb = y.to(torch.int32).reshape(mbh, 16, mbw, 16).transpose(1, 2)
     umb = u.to(torch.int32).reshape(mbh, 8, mbw, 8).transpose(1, 2)
@@ -249,3 +275,64 @@ def deblock_frame_rows(y, u, v, nnz44, mv_q, qp: int, qp_c: int,
                 .clamp(0, 255).to(torch.uint8))
 
     return plane(out_y, 16), plane(out_u, 8), plane(out_v, 8)
+
+
+def _check_deblock(y, u, v, bs_v, bs_h, qp: int, qp_c: int) -> None:
+    """Raise on what K2 does not take."""
+    if y.dim() != 2 or y.shape[0] % 16 or y.shape[1] % 16 or y.numel() == 0:
+        raise ValueError(f"h264_deblock_rows: y {tuple(y.shape)} is not "
+                         "(H, W) in whole 16x16 MBs")
+    h, w = y.shape
+    mbh, mbw = h // 16, w // 16
+    check_kernel_args("h264_deblock_rows", [
+        ("y", y, torch.uint8, (h, w)),
+        ("u", u, torch.uint8, (h // 2, w // 2)),
+        ("v", v, torch.uint8, (h // 2, w // 2)),
+        ("bs_v", bs_v, torch.int32, (mbh, mbw, 4, 4)),
+        ("bs_h", bs_h, torch.int32, (mbh, mbw, 3, 4))], (qp, qp_c))
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """K2's C entry point (built and loaded at first use)."""
+    from ceracoder_tpu_torch.utils.cuda_build import load_library
+
+    fn = load_library("h264_deblock").h264_deblock_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 12 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def h264_deblock_rows(y, u, v, bs_v, bs_h, qp: int, qp_c: int):
+    """The deblocking filter of a frame for given bS (K2).
+
+    On a CUDA tensor this launches the kernel of csrc/h264_deblock.cu
+    (one CTA per MB row, the MB columns in a loop) on the current
+    stream, or raises; on a CPU tensor it runs `deblock_frame_rows_ref`.
+    `h264_deblock_rows.launches` counts kernel launches."""
+    qp, qp_c = int(qp), int(qp_c)
+    _check_deblock(y, u, v, bs_v, bs_h, qp, qp_c)
+    if y.device.type == "cpu":
+        return deblock_frame_rows_ref(y, u, v, bs_v, bs_h, qp, qp_c)
+    if y.device.type != "cuda":
+        raise ValueError(f"h264_deblock_rows: unsupported device {y.device}")
+    mbh, mbw = y.shape[0] // 16, y.shape[1] // 16
+    out = (torch.empty_like(y), torch.empty_like(u), torch.empty_like(v))
+    launch = _launcher()
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = launch(y.data_ptr(), u.data_ptr(), v.data_ptr(),
+                     bs_v.data_ptr(), bs_h.data_ptr(),
+                     *(o.data_ptr() for o in out), mbh, mbw,
+                     int(ALPHA[qp]), int(BETA[qp]), *map(int, TC0[qp]),
+                     int(ALPHA[qp_c]), int(BETA[qp_c]),
+                     *map(int, TC0[qp_c]), stream)
+    if err != 0:
+        raise RuntimeError(f"h264_deblock_rows kernel launch failed: CUDA "
+                           f"error {err}")
+    h264_deblock_rows.launches += 1
+    return out
+
+
+h264_deblock_rows.launches = 0

@@ -17,16 +17,15 @@ the fallback's column scan only when the frame has an intra MB
 (`bool(is_intra.any())`) would wait for the frame's motion search in
 the middle of a run's launches. Every result of the scan is masked by
 `is_intra`, so running it always gives the same outputs: the port
-always runs it, mbw more `_encode_mb_col` steps per P frame, and never
-synchronizes. A persistent kernel per MB row (ROADMAP.md §2) would take
-these launches away together with the deblock's and the IDR's.
+always runs it, one launch of K3 (`ops/intra.py:h264_intra16_cols`) per
+P frame on a card, and never synchronizes.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ceracoder_tpu_torch.ops.intra import _OUT_DTYPES, _encode_mb_col
+from ceracoder_tpu_torch.ops.intra import h264_intra16_cols
 from ceracoder_tpu_torch.ops.transform import (
     dequant4,
     dequant_dc2,
@@ -303,9 +302,9 @@ def _intra_fallback(y, u, v, outs, qp: int, qp_c: int):
     Decision (source pixels): an MB goes intra when the best left-only
     intra predictor (H or DC) beats the chosen inter prediction's SAD
     by >= 1/8 (the margin stands in for the intra mode's larger header
-    cost). Coding: a loop over MB columns, batched over MB rows, recodes
-    every MB with ops/intra.py's `_encode_mb_col` against the true
-    decoded left columns; the carry hands forward the SELECTED
+    cost). Coding: ops/intra.py's `h264_intra16_cols` (K3) recodes every
+    MB, column after column, against the true decoded left columns; the
+    carry hands forward the SELECTED
     reconstruction (intra where chosen, the inter recon elsewhere),
     which is the decoder's neighbour state. The loop runs whether or
     not the frame has an intra MB (module docstring); its results count
@@ -326,26 +325,12 @@ def _intra_fallback(y, u, v, outs, qp: int, qp_c: int):
     sad_dc = (cur - dc[..., None, None]).abs().sum((-1, -2))
     is_intra = 8 * torch.minimum(sad_h, sad_dc) < 7 * outs["sad"]
 
-    umb = _mb_view(u.to(torch.int32), 8)
-    vmb = _mb_view(v.to(torch.int32), 8)
+    iouts = h264_intra16_cols(y.contiguous(), u.contiguous(),
+                              v.contiguous(), qp, qp_c, is_intra,
+                              outs["recon"])
     ry_mb = _mb_view(outs["recon"][0])
     ru_mb = _mb_view(outs["recon"][1], 8)
     rv_mb = _mb_view(outs["recon"][2], 8)
-
-    ly = torch.full((mbh, 16), 128, dtype=torch.int32, device=dev)
-    lu = torch.full((mbh, 8), 128, dtype=torch.int32, device=dev)
-    lv = torch.full((mbh, 8), 128, dtype=torch.int32, device=dev)
-    cols = []
-    for c in range(mbw):
-        out, (nly, nlu, nlv) = _encode_mb_col(cur[:, c], umb[:, c],
-                                              vmb[:, c], ly, lu, lv, qp,
-                                              qp_c)
-        m1 = is_intra[:, c, None]
-        ly = torch.where(m1, nly, ry_mb[:, c, :, 15].to(torch.int32))
-        lu = torch.where(m1, nlu, ru_mb[:, c, :, 7].to(torch.int32))
-        lv = torch.where(m1, nlv, rv_mb[:, c, :, 7].to(torch.int32))
-        cols.append(out)
-    iouts = {k: torch.stack([o[k] for o in cols], dim=1) for k in cols[0]}
 
     m = is_intra
     m2 = m[..., None, None]
@@ -353,25 +338,22 @@ def _intra_fallback(y, u, v, outs, qp: int, qp_c: int):
     def unmb(x, mb):
         return x.transpose(1, 2).reshape(mbh * mb, mbw * mb)
 
-    def sel(key, inter):
-        return torch.where(m2, iouts[key].to(torch.uint8), inter)
+    def sel(i, inter, mb):
+        return torch.where(m2, _mb_view(iouts["recon"][i], mb), inter)
 
     keep = (~m).to(torch.int16)
     outs = dict(outs)
-    outs["recon"] = (unmb(sel("recon_y", ry_mb), 16),
-                     unmb(sel("recon_u", ru_mb), 8),
-                     unmb(sel("recon_v", rv_mb), 8))
+    outs["recon"] = (unmb(sel(0, ry_mb, 16), 16), unmb(sel(1, ru_mb, 8), 8),
+                     unmb(sel(2, rv_mb, 8), 8))
     outs["mv"] = outs["mv"] * (~m)[..., None]
     outs["luma_levels"] = outs["luma_levels"] * keep[..., None, None, None]
-    dcc = iouts["dc_chroma"].to(torch.int16)
-    acc = iouts["ac_chroma"].to(torch.int16)
-    outs["dc_chroma"] = torch.where(m[..., None, None], dcc,
+    outs["dc_chroma"] = torch.where(m[..., None, None], iouts["dc_chroma"],
                                     outs["dc_chroma"])
-    outs["ac_chroma"] = torch.where(m[..., None, None, None, None], acc,
-                                    outs["ac_chroma"])
+    outs["ac_chroma"] = torch.where(m[..., None, None, None, None],
+                                    iouts["ac_chroma"], outs["ac_chroma"])
     outs["is_intra"] = m
     for k in ("mode_luma", "mode_chroma", "dc_luma", "ac_luma"):
-        o = iouts[k].to(_OUT_DTYPES[k])
+        o = iouts[k]
         outs[k] = o * m.reshape(*m.shape, *([1] * (o.dim() - 2)))
     return outs
 

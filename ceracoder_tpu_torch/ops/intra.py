@@ -6,9 +6,18 @@ column is one batched step over all MB rows; the columns run as a
 Python loop carrying each row's right-edge reconstruction (the JAX
 `lax.scan`). Prediction modes per spec 8.3.3 / 8.3.4, restricted to the
 left-neighbor modes available in slice-row scanning: Horizontal and DC.
+
+That loop is `_encode_mb_cols_ref`, the plain version of K3
+(csrc/h264_intra16.cu: one CTA per MB row with the columns looped inside
+and the left columns in shared memory), which also serves the
+intra-in-P scan of ops/inter.py. `h264_intra16_cols` launches K3 on a
+CUDA tensor and runs the loop on a CPU tensor.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -27,6 +36,7 @@ from ceracoder_tpu_torch.ops.transform import (
     to_blocks4,
     zigzag_scan,
 )
+from ceracoder_tpu_torch.utils.device import check_kernel_args
 
 # Intra16x16PredMode values (spec table 8-4)
 LUMA_V, LUMA_H, LUMA_DC, LUMA_PLANE = 0, 1, 2, 3
@@ -130,21 +140,44 @@ def encode_frame_i16_rows(y, u, v, qp: int, qp_c: int):
     y: (H, W) uint8 with H, W multiples of 16; u, v: (H/2, W/2).
     Returns a dict of per-MB arrays, leading dims (mb_rows, mb_cols),
     with the reference's keys and dtypes, plus "recon" = (y, u, v)
-    uint8 planes.
+    uint8 planes. The MB columns run in `h264_intra16_cols` (K3 on a
+    card).
     """
+    return h264_intra16_cols(y.contiguous(), u.contiguous(), v.contiguous(),
+                             qp, qp_c)
+
+
+def _encode_mb_cols_ref(y, u, v, qp: int, qp_c: int, is_intra=None,
+                        inter_recon=None):
+    """Plain PyTorch version of K3: the column loop over
+    `_encode_mb_col`, batched over MB rows, carrying each row's left
+    columns. With `is_intra` (mbh, mbw) bool and `inter_recon` (the
+    inter (y, u, v) planes) the carry after each MB is the intra
+    reconstruction where is_intra is set and the inter one elsewhere
+    (the intra-in-P scan); without them it is always the intra one.
+    Returns encode_frame_i16_rows' dict (the intra reconstruction)."""
     h, w = y.shape
     mbh, mbw = h // 16, w // 16
-    ymb = y.to(torch.int32).reshape(mbh, 16, mbw, 16).transpose(1, 2)
-    umb = u.to(torch.int32).reshape(mbh, 8, mbw, 8).transpose(1, 2)
-    vmb = v.to(torch.int32).reshape(mbh, 8, mbw, 8).transpose(1, 2)
+
+    def mbs(x, mb):
+        return x.to(torch.int32).reshape(x.shape[0] // mb, mb, mbw,
+                                         mb).transpose(1, 2)
+    ymb, umb, vmb = mbs(y, 16), mbs(u, 8), mbs(v, 8)
+    if is_intra is not None:
+        rmb = [mbs(p, mb) for p, mb in zip(inter_recon, (16, 8, 8))]
 
     ly = torch.full((mbh, 16), 128, dtype=torch.int32, device=y.device)
     lu = torch.full((mbh, 8), 128, dtype=torch.int32, device=y.device)
     lv = torch.full((mbh, 8), 128, dtype=torch.int32, device=y.device)
     cols = []
     for c in range(mbw):
-        out, (ly, lu, lv) = _encode_mb_col(ymb[:, c], umb[:, c], vmb[:, c],
-                                           ly, lu, lv, qp, qp_c)
+        out, left = _encode_mb_col(ymb[:, c], umb[:, c], vmb[:, c], ly, lu,
+                                   lv, qp, qp_c)
+        if is_intra is not None:
+            m1 = is_intra[:, c, None]
+            left = [torch.where(m1, nl, r[:, c, :, -1])
+                    for nl, r in zip(left, rmb)]
+        ly, lu, lv = left
         cols.append(out)
     outs = {k: torch.stack([o[k] for o in cols], dim=1) for k in cols[0]}
 
@@ -156,3 +189,80 @@ def encode_frame_i16_rows(y, u, v, qp: int, qp_c: int):
     outs = {k: o.to(_OUT_DTYPES[k]) for k, o in outs.items()}
     outs["recon"] = recon
     return outs
+
+
+def _check_intra16(y, u, v, qp: int, qp_c: int, is_intra, inter_recon):
+    """Raise on what K3 does not take."""
+    if (is_intra is None) != (inter_recon is None):
+        raise ValueError("h264_intra16_cols: is_intra and inter_recon go "
+                         "together")
+    if y.dim() != 2 or y.shape[0] % 16 or y.shape[1] % 16 or y.numel() == 0:
+        raise ValueError(f"h264_intra16_cols: y {tuple(y.shape)} is not "
+                         "(H, W) in whole 16x16 MBs")
+    h, w = y.shape
+    shapes = ((h, w), (h // 2, w // 2), (h // 2, w // 2))
+    args = [(n, p, torch.uint8, s) for n, p, s in zip("yuv", (y, u, v),
+                                                       shapes)]
+    if is_intra is not None:
+        if len(inter_recon) != 3:
+            raise ValueError("h264_intra16_cols: inter_recon is (y, u, v)")
+        args.append(("is_intra", is_intra, torch.bool, (h // 16, w // 16)))
+        args += [(f"inter_recon[{i}]", p, torch.uint8, s)
+                 for i, (p, s) in enumerate(zip(inter_recon, shapes))]
+    check_kernel_args("h264_intra16_cols", args, (qp, qp_c))
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    """K3's C entry point (built and loaded at first use)."""
+    from ceracoder_tpu_torch.utils.cuda_build import load_library
+
+    fn = load_library("h264_intra16").h264_intra16_launch
+    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def h264_intra16_cols(y, u, v, qp: int, qp_c: int, is_intra=None,
+                      inter_recon=None):
+    """Intra_16x16 coding of every MB of a frame, column after column
+    (K3); arguments and result as `_encode_mb_cols_ref`.
+
+    On a CUDA tensor this launches the kernel of csrc/h264_intra16.cu
+    (one CTA per MB row, the MB columns in a loop) on the current
+    stream, or raises; on a CPU tensor it runs `_encode_mb_cols_ref`.
+    `h264_intra16_cols.launches` counts kernel launches."""
+    qp, qp_c = int(qp), int(qp_c)
+    _check_intra16(y, u, v, qp, qp_c, is_intra, inter_recon)
+    if y.device.type == "cpu":
+        return _encode_mb_cols_ref(y, u, v, qp, qp_c, is_intra, inter_recon)
+    if y.device.type != "cuda":
+        raise ValueError(f"h264_intra16_cols: unsupported device {y.device}")
+    mbh, mbw = y.shape[0] // 16, y.shape[1] // 16
+
+    def empty(*shape, dtype=torch.int16):
+        return torch.empty((mbh, mbw, *shape), dtype=dtype, device=y.device)
+    outs = dict(dc_luma=empty(16), ac_luma=empty(4, 4, 15),
+                mode_luma=empty(dtype=torch.uint8), dc_chroma=empty(2, 4),
+                ac_chroma=empty(2, 2, 2, 15),
+                mode_chroma=empty(dtype=torch.uint8),
+                recon=(torch.empty_like(y), torch.empty_like(u),
+                       torch.empty_like(v)))
+    scan = [None] * 4 if is_intra is None else [
+        is_intra.data_ptr(), *(p.data_ptr() for p in inter_recon)]
+    launch = _launcher()
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = launch(y.data_ptr(), u.data_ptr(), v.data_ptr(), *scan,
+                     *(outs[k].data_ptr() for k in _OUT_DTYPES),
+                     *(p.data_ptr() for p in outs["recon"]), mbh, mbw, qp,
+                     qp_c, stream)
+    if err != 0:
+        raise RuntimeError(f"h264_intra16_cols kernel launch failed: CUDA "
+                           f"error {err}")
+    h264_intra16_cols.launches += 1
+    return outs
+
+
+h264_intra16_cols.launches = 0

@@ -51,20 +51,28 @@ from ceracoder_tpu_torch.ops.transform import chroma_qp
 
 
 def time_stage(name, fn, out):
-    """Run fn() (a pure stage) twice: once timed on the host clock
-    between synchronizations, once under torch.profiler to count its
-    kernel launches and their device time; record into out[name]."""
+    """Run fn() (a pure stage) timed on the host clock between
+    synchronizations, then under torch.profiler to count its kernel
+    launches and their device time; record into out[name]. The
+    profiler sometimes records no event for a kernel that runs for a
+    fraction of a millisecond (K2, K3; PERF.md §7), so the profiled
+    call is made three times and the window with the most events is
+    kept."""
     torch.cuda.synchronize()
     t = time.perf_counter()
     res = fn()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t) * 1e3
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    evts = [e for e in prof.events() if e.device_time_total > 0]
-    out[name] = {"host_ms": host_ms, "launches": len(evts),
-                 "device_ms": sum(e.device_time_total for e in evts) / 1e3}
+    best = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        evts = [e for e in prof.events() if e.device_time_total > 0]
+        if len(evts) > len(best):
+            best = evts
+    out[name] = {"host_ms": host_ms, "launches": len(best),
+                 "device_ms": sum(e.device_time_total for e in best) / 1e3}
     return res
 
 

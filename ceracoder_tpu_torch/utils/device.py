@@ -38,3 +38,25 @@ def upload(plane, device: torch.device) -> torch.Tensor:
     if device.type == "cuda" and plane.device.type == "cpu":
         return plane.pin_memory().to(device, non_blocking=True)
     return plane.to(device)
+
+
+def check_kernel_args(fn: str, args, qps) -> None:
+    """Raise on what a hand kernel's wrapper `fn` does not take.
+
+    args: (name, tensor, dtype, shape) for each tensor argument, the
+    first one's device the device of all; qps: the QPs, each in 0..51.
+    """
+    device = args[0][1].device
+    for name, x, dtype, shape in args:
+        if x.dtype != dtype:
+            raise TypeError(f"{fn}: {name} is {x.dtype}, needs {dtype}")
+        if tuple(x.shape) != tuple(shape):
+            raise ValueError(f"{fn}: {name} {tuple(x.shape)}, needs "
+                             f"{tuple(shape)}")
+        if not x.is_contiguous():
+            raise ValueError(f"{fn}: {name} is not contiguous")
+        if x.device != device:
+            raise ValueError(f"{fn}: {name} lies on {x.device}, "
+                             f"{args[0][0]} on {device}")
+    if not all(0 <= q <= 51 for q in qps):
+        raise ValueError(f"{fn}: QPs {list(qps)} not all in 0..51")

@@ -11,14 +11,17 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 2. build: every hand-written kernel from csrc/, one nvcc per source,
    all started together;
 3. kernels: each kernel against its plain PyTorch version on the card,
-   on random inputs, on edge cases (`merge_edge_cases`) and on the real
-   inputs of a 1080p IDR and P frame, bit-equal; timed (torch.profiler
-   device time over 5 windows, and CUDA events) beside the plain
-   version, one-call PyTorch yardsticks and the memory bound;
+   on random inputs, on edge cases (`merge_edge_cases`,
+   `deblock_edge_cases`, `intra16_edge_cases`) and on the real inputs of
+   a 1080p IDR and P frame, bit-equal; timed (torch.profiler device time
+   over 5 windows, and CUDA events) beside the plain version, one-call
+   PyTorch yardsticks where there are any (K1), the CUDA-graph replay of
+   the plain loop (K2, K3) and the memory bound;
 4. main path: H264Encoder(1920, 1088, qp=28, gop=60, cabac=False) on
    DeviceTestPatternSource(1920, 1088, texture=6), 3 runs of 10 frames
    through encode_run_async; kernel launch counts are set to 0 just
-   before and read just after;
+   before and read just after (K1 once per frame, K2 once per frame,
+   K3 once per IDR); every main-path phase below does the same;
 5. GPU equals CPU: the same port at 320x192 (6 frames, gop 4, two
    runs) on cuda and cpu gives byte-identical streams, and so do the
    first IDR and P frame at 1080p;
@@ -49,11 +52,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 10. H.264 CABAC main path: H264Encoder(1920, 1088, qp=28, gop=60) with
    its defaults (CABAC, intra-in-P) on the device test pattern, 3 runs
    of 10 frames through encode_run_async; checks the GOP structure, one
-   NAL unit per MB row, the recon shapes and that K1 is launched 0
-   times; prints frames/s, bytes per IDR and mean P frame, intra MBs per
-   P frame (read off the unpacked rows), fallback frames, peak device
-   memory, and the CUDA launches and device ms of one more P frame
-   (torch.profiler);
+   NAL unit per MB row, the recon shapes, that K1 is launched 0 times
+   and K2 and K3 once per frame, and that one more P frame and one more
+   IDR each launch fewer than 3,000 CUDA kernels (torch.profiler);
+   prints frames/s, bytes per IDR and mean P frame, intra MBs per P
+   frame (read off the unpacked rows), fallback frames, peak device
+   memory, and those launches and device ms;
 11. CABAC GPU equals CPU: 320x192 on the device source (6 frames, gop
    4, two runs) and on host frames whose bottom half changes to new
    content mid-clip (so both code intra MBs in P slices, which is
@@ -61,10 +65,12 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
 12. the H.264 product loop: CeracoderApp on jobs/h264_test_1080p30 (host
    test pattern 1920x1080, burn-in, codec h264, gop 60, runs of 8), the
    fixed balancer, loopback SRT (UDP where libsrt does not load), the
-   stall watchdog off; 8 warm-up frames, then 16 timed. Checks the
-   payloads, continuity, keyframes and that K1 is launched 0 times;
-   prints emit-to-emit frames/s, the host seconds as phase 8 and the
-   longest time the watchdog's position stood still.
+   stall watchdog off; 8 warm-up frames, then 120 timed. Checks the
+   payloads, continuity, keyframes (frames 0, 60, 120), that K1 is
+   launched 0 times and K2 and K3 once per frame, and that the longest
+   time the watchdog's position stood still is at most the watchdog's
+   1 s check (a live job would exit above it); prints emit-to-emit
+   frames/s, the host seconds as phase 8 and that time.
 
 The native libraries (native/src: the HEVC entropy stage, the H.264
 CABAC row coder, the balancer core and, where the libavcodec headers
@@ -90,9 +96,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# kernel name -> (TPU kernel it replaces, route)
+# csrc source -> (wrapper, what it replaces on the TPU, route)
 KERNELS = {
-    "merge_windows": ("ceracoder_tpu/ops/bitpack.py:112", "cuda"),
+    "merge_windows": ("merge_windows", "ceracoder_tpu/ops/bitpack.py:112",
+                      "cuda"),
+    "h264_deblock": ("h264_deblock_rows",
+                     "ceracoder_tpu/ops/deblock.py:213", "cuda"),
+    "h264_intra16": ("h264_intra16_cols", "ceracoder_tpu/ops/intra.py:152",
+                     "cuda"),
 }
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
@@ -175,6 +186,37 @@ def device_ms(fn, iters: int, windows: int = 5, warmup: int = 5,
             "kernels_per_call": k,
             "dropped_windows": taken - len(kept),
             "lost_events": sum(want - n for n, _ in kept)}
+
+
+def kernel_event_ms(fn, kernel: str, iters: int) -> dict:
+    """Device milliseconds per launch of the one kernel that fn()
+    launches (its name contains `kernel`): the mean duration of the
+    kernel events torch.profiler records in a window of `iters` calls,
+    median of 5 windows after 3 warm-up calls. For kernels that run for
+    a few tenths of a millisecond the profiler records fewer events than
+    launches (F6); the mean of those it records does not depend on how
+    many it lost, which are counted (`lost_events`). The check fails if
+    a window records none, or any kernel other than `kernel`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    per, lost = [], 0
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        check(len(events) > 0 and all(kernel in e.name for e in events),
+              f"window of {iters} calls recorded {[e.name for e in events]}")
+        per.append(sum(e.time_range.elapsed_us() for e in events)
+                   / len(events) / 1e3)
+        lost += iters - len(events)
+    return {"ms": statistics.median(per), "spread": [min(per), max(per)],
+            "lost_events": lost}
 
 
 def build_kernels(tag: str) -> None:
@@ -420,6 +462,356 @@ def phase_kernels(tag: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# K2 (h264_deblock_rows) and K3 (h264_intra16_cols)
+# ---------------------------------------------------------------------------
+
+EDGE_W, EDGE_H = 112, 48    # 7 MB columns: one unrolled step in JAX's scans
+EDGE_QPS = ((0, 0), (17, 17), (28, 28), (51, 51), (51, 17), (0, 28))
+
+
+def edge_planes(rng, w: int, h: int, smooth: bool = True):
+    """uint8 (y, u, v): a gradient with mild noise, so that the filters'
+    conditions hold at many edges (or, with smooth=False, uniform noise,
+    the largest residuals), with a region of 0, a region near 255 and
+    scattered samples of 0 and 255."""
+    def plane(ph, pw, k):
+        yy, xx = np.mgrid[0:ph, 0:pw]
+        if smooth:
+            p = (xx * k + yy * 2) % 200 + 20 + rng.integers(-3, 4, (ph, pw))
+        else:
+            p = rng.integers(0, 256, (ph, pw))
+        p[:ph // 4, :pw // 4] = 0
+        p[ph // 2:, pw // 2:] = 255 - rng.integers(0, 3, p[ph // 2:,
+                                                            pw // 2:].shape)
+        spots = rng.random((ph, pw)) < 0.03
+        p = np.where(spots, rng.choice([0, 255], (ph, pw)), p)
+        return p.clip(0, 255).astype(np.uint8)
+    return plane(h, w, 3), plane(h // 2, w // 2, 5), plane(h // 2, w // 2, 7)
+
+
+def deblock_edge_cases(seed: int = 11) -> dict:
+    """K2 edge cases as numpy arrays at EDGE_W x EDGE_H, made from `seed`:
+    name -> (y, u, v, nnz44, mv_q, qp, qp_c, intra_frame, intra_mb), the
+    arguments of deblock_frame_rows. Intra frames (bS 0, 3, 4), P frames
+    (bS 0, 1, 2 from the nnz flags and MV steps of 4 quarter-pels and
+    more) and P frames with Intra_16x16 MBs (bS 0-4), each at qp / qp_c
+    0, 17, 28, 51 and mixed."""
+    rng = np.random.default_rng(seed)
+    mbh, mbw = EDGE_H // 16, EDGE_W // 16
+    cases = {}
+    for qp, qp_c in EDGE_QPS:
+        for kind in ("intra", "p", "p_intra_mb"):
+            y, u, v = edge_planes(rng, EDGE_W, EDGE_H)
+            nnz = (rng.random((mbh, mbw, 4, 4)) < 0.3).astype(np.int32)
+            mv = rng.integers(-9, 10, (mbh, mbw, 2)).astype(np.int32)
+            imb = None
+            if kind == "p_intra_mb":
+                imb = rng.random((mbh, mbw)) < 0.35
+            cases[f"{kind}_qp{qp}_qpc{qp_c}"] = (
+                y, u, v, nnz, mv, qp, qp_c, kind == "intra", imb)
+    return cases
+
+
+def intra16_edge_cases(seed: int = 12) -> dict:
+    """K3 edge cases as numpy arrays at EDGE_W x EDGE_H, made from `seed`:
+    name -> (y, u, v, qp, qp_c, is_intra, inter_recon), the arguments of
+    h264_intra16_cols. Without a mask (the IDR loop) on noise (the
+    largest levels) and on smooth planes; with random, all-true and
+    all-false masks and an inter reconstruction (the intra-in-P scan);
+    each at qp / qp_c 0, 17, 28, 51 and mixed."""
+    rng = np.random.default_rng(seed)
+    mbh, mbw = EDGE_H // 16, EDGE_W // 16
+    cases = {}
+    for qp, qp_c in EDGE_QPS:
+        for kind in ("noise", "smooth", "scan_random", "scan_all_true",
+                     "scan_all_false"):
+            planes = edge_planes(rng, EDGE_W, EDGE_H, kind != "noise")
+            mask, recon = None, None
+            if kind.startswith("scan"):
+                mask = {"scan_random": rng.random((mbh, mbw)) < 0.5,
+                        "scan_all_true": np.ones((mbh, mbw), bool),
+                        "scan_all_false": np.zeros((mbh, mbw), bool)}[kind]
+                recon = edge_planes(rng, EDGE_W, EDGE_H)
+            cases[f"{kind}_qp{qp}_qpc{qp_c}"] = (*planes, qp, qp_c, mask,
+                                                 recon)
+    return cases
+
+
+def _cuda(x):
+    """numpy arrays (also inside tuples) as tensors on the card; other
+    values as they are."""
+    if isinstance(x, tuple):
+        return tuple(_cuda(p) for p in x)
+    if isinstance(x, np.ndarray):
+        return torch.as_tensor(np.ascontiguousarray(x)).cuda()
+    return x
+
+
+def deblock_case_args(case) -> tuple:
+    """h264_deblock_rows' arguments on the card for a deblock_edge_cases
+    entry (bS from compute_bs on the card)."""
+    from ceracoder_tpu_torch.ops.deblock import compute_bs
+
+    y, u, v, nnz, mv, qp, qp_c, intra_frame, imb = case
+    bs_v, bs_h = compute_bs(_cuda(nnz), _cuda(mv), intra_frame, _cuda(imb))
+    return (_cuda(y), _cuda(u), _cuda(v), bs_v, bs_h, qp, qp_c)
+
+
+def random_deblock_args(gen: np.random.Generator, w: int, h: int, qp: int,
+                        qp_c: int) -> tuple:
+    """K2 arguments on the card with every bS drawn from 0..4, also on
+    the picture's left edge (compute_bs would give 0 there)."""
+    mbh, mbw = h // 16, w // 16
+    planes = _cuda(edge_planes(gen, w, h))
+    bs_v = _cuda(gen.integers(0, 5, (mbh, mbw, 4, 4)).astype(np.int32))
+    bs_h = _cuda(gen.integers(0, 5, (mbh, mbw, 3, 4)).astype(np.int32))
+    return (*planes, bs_v, bs_h, qp, qp_c)
+
+
+def random_intra16_args(gen: np.random.Generator, w: int, h: int, qp: int,
+                        qp_c: int, scan: bool) -> tuple:
+    mbh, mbw = h // 16, w // 16
+    planes = _cuda(edge_planes(gen, w, h, smooth=False))
+    if not scan:
+        return (*planes, qp, qp_c, None, None)
+    return (*planes, qp, qp_c, _cuda(gen.random((mbh, mbw)) < 0.5),
+            _cuda(edge_planes(gen, w, h)))
+
+
+def _flat_outputs(out) -> list:
+    """Every tensor a K2 / K3 call returns, in one order."""
+    if isinstance(out, dict):
+        return [*(out[k] for k in sorted(out) if k != "recon"),
+                *out["recon"]]
+    return list(out)
+
+
+def h264_kernel_err(kernel, plain, args) -> int:
+    """Largest difference between a kernel's and its plain version's
+    outputs on `args` (shapes and dtypes must agree)."""
+    got = _flat_outputs(kernel(*args))
+    want = _flat_outputs(plain(*args))
+    torch.cuda.synchronize()
+    check(len(got) == len(want), "output count")
+    err = 0
+    for a, b in zip(got, want):
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"output {tuple(a.shape)} {a.dtype} vs {tuple(b.shape)} "
+              f"{b.dtype}")
+        err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
+                           .abs().max()) if a.numel() else 0)
+    return err
+
+
+def capture_h264_kernel_inputs(width: int, height: int, texture: int):
+    """The arguments that the CABAC encoder (H264Encoder's defaults)
+    hands K2 and K3 for frame 0 (IDR) and frame 1 (P) of the device
+    source: {"h264_deblock_rows": [IDR, P], "h264_intra16_cols": [IDR,
+    P]}."""
+    import ceracoder_tpu_torch.ops.deblock as deblock
+    import ceracoder_tpu_torch.ops.inter as inter
+    import ceracoder_tpu_torch.ops.intra as intra
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+    from ceracoder_tpu_torch.codec.h264.encoder import H264Encoder
+
+    captured = {"h264_deblock_rows": [], "h264_intra16_cols": []}
+    slots = [(deblock, "h264_deblock_rows"), (intra, "h264_intra16_cols"),
+             (inter, "h264_intra16_cols")]
+    reals = [getattr(mod, name) for mod, name in slots]
+
+    def clone(a):
+        if isinstance(a, torch.Tensor):
+            return a.clone()
+        if isinstance(a, tuple):
+            return tuple(clone(p) for p in a)
+        return a
+
+    def spy(name, real):
+        def run(*args):
+            captured[name].append(tuple(clone(a) for a in args))
+            return real(*args)
+        run.launches = 0        # the wrapper counts on its module's name
+        return run
+    for (mod, name), real in zip(slots, reals):
+        setattr(mod, name, spy(name, real))
+    try:
+        src = DeviceTestPatternSource(width, height, texture=texture)
+        enc = H264Encoder(width, height, qp=28, gop=60)
+        for p in enc.encode_run_async(source=src, indices=range(2)):
+            p.result()
+    finally:
+        for (mod, name), real in zip(slots, reals):
+            setattr(mod, name, real)
+    for name, got in captured.items():
+        check(len(got) == 2, f"captured {len(got)} {name} calls, want 2")
+    check(captured["h264_intra16_cols"][1][5] is not None,
+          "the P frame's K3 call is not the intra-in-P scan")
+    return captured
+
+
+def graph_replay_ms(fn, iters: int = 3) -> float:
+    """CUDA-event milliseconds per replay of fn() captured in one CUDA
+    graph: the launch-free yardstick for a loop of small kernels (it
+    keeps each kernel's device cost and the gaps between them)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                          # warm-up: tables, allocator
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = time_cuda(graph.replay, iters, warmup=1)
+    del graph
+    torch.cuda.synchronize()
+    return ms
+
+
+# integer operations per MB that the work needs (the operations bound):
+# K2 evaluates each edge's conditions and filter on every sample line,
+# about 60 operations for a luma line (16 per edge, 4 vertical and 3
+# horizontal edges) and 30 for a chroma one (8 per edge, 3 edges, two
+# components). K3 per MB: the SADs of two candidates (3 per sample,
+# 384 samples), the residual (1 each), the forward and the inverse
+# butterflies (64 and 96 per 4x4 block, 24 blocks), quant (6 per
+# coefficient), dequant (2) and the clamped reconstruction (3), and the
+# DC Hadamards, their quant and scaling (about 400).
+DEBLOCK_OPS_PER_MB = 60 * 16 * 7 + 30 * 8 * 3 * 2
+INTRA16_OPS_PER_MB = (3 * 2 * 384 + 384 + (64 + 96) * 24 + (6 + 2 + 3) * 384
+                      + 400)
+
+
+def h264_kernel_numbers(name: str, kernel, plain, args, ops: int) -> dict:
+    """Equality and timings of K2 or K3 on one input: the kernel's
+    device time (torch.profiler, median of 5 windows), the plain loop's
+    device time and launches (torch.profiler, one call after a warm-up)
+    and its CUDA-event time per call, and the CUDA-graph replay of the
+    plain loop (the yardstick, ROADMAP.md §2)."""
+    iters = 20
+    out = {"max_abs_err": h264_kernel_err(kernel, plain, args)}
+    dev = kernel_event_ms(lambda: kernel(*args), name.rsplit("_", 1)[0],
+                          iters)
+    out.update(ms=dev["ms"], spread=dev["spread"], lost=dev["lost_events"])
+    out["event_ms"] = time_cuda(lambda: kernel(*args), iters)
+    plain(*args)
+    out["plain_launches"], out["plain_ms"] = kernel_launches(
+        lambda: plain(*args))
+    out["event_plain_ms"] = time_cuda(lambda: plain(*args), 1, warmup=0)
+    out["graph_ms"] = graph_replay_ms(lambda: plain(*args))
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    tensors += [p for a in args if isinstance(a, tuple) for p in a]
+    outs = _flat_outputs(kernel(*args))
+    nbytes = sum(t.numel() * t.element_size() for t in tensors + outs)
+    y = args[0]
+    nops = ops * (y.shape[0] // 16) * (y.shape[1] // 16)
+    bound_ms = max(nbytes / HBM_BYTES_PER_S, nops / INT32_OPS_PER_S) * 1e3
+    out.update(
+        bound_ms=bound_ms,
+        bound_by=("bytes" if nbytes / HBM_BYTES_PER_S
+                  >= nops / INT32_OPS_PER_S else "operations"),
+        bound_share=bound_ms / out["ms"], bytes=nbytes, ops=nops,
+        library_ms=None, shape=list(y.shape))
+    return out
+
+
+def print_h264_kernel_numbers(tag: str, label: str, n: dict) -> None:
+    print(f"{tag} {label} {n['shape']}: max_abs_err={n['max_abs_err']}; "
+          f"device ms per launch (profiler, median [min, max] of 5 "
+          f"windows of 20 calls) {n['ms']:.6f} {n['spread']} (events not "
+          f"recorded {n['lost']} of 100), "
+          f"CUDA-event ms per call {n['event_ms']:.6f}; plain loop: "
+          f"{n['plain_launches']} launches, device ms {n['plain_ms']:.6f}, "
+          f"CUDA-event ms {n['event_plain_ms']:.3f}; CUDA-graph replay of "
+          f"the plain loop {n['graph_ms']:.6f} ms; bound_ms="
+          f"{n['bound_ms']:.6f} ({n['bound_by']}, {n['bytes']} B, "
+          f"{n['ops']} ops), share of bound {n['bound_share']:.4f}; "
+          f"kernel below the graph replay: {n['ms'] < n['graph_ms']}")
+
+
+def phase_h264_kernels(tag: str) -> dict:
+    """K2 and K3 against their plain versions: the edge cases, random
+    1080p inputs and the real 1080p IDR and P inputs (equal element for
+    element), then timed on the real inputs."""
+    from ceracoder_tpu_torch.ops.deblock import (
+        deblock_frame_rows_ref, h264_deblock_rows)
+    from ceracoder_tpu_torch.ops.intra import (
+        _encode_mb_cols_ref, h264_intra16_cols)
+
+    pairs = {"h264_deblock_rows": (h264_deblock_rows,
+                                   deblock_frame_rows_ref),
+             "h264_intra16_cols": (h264_intra16_cols, _encode_mb_cols_ref)}
+    errs = {name: [] for name in pairs}
+    for name, case in deblock_edge_cases().items():
+        errs["h264_deblock_rows"].append(h264_kernel_err(
+            *pairs["h264_deblock_rows"], deblock_case_args(case)))
+    for name, case in intra16_edge_cases().items():
+        errs["h264_intra16_cols"].append(h264_kernel_err(
+            *pairs["h264_intra16_cols"], _cuda(case)))
+    print(f"{tag} K2 edge cases ({len(errs['h264_deblock_rows'])}, "
+          f"{EDGE_W}x{EDGE_H}, bS 0-4, qp / qp_c {list(EDGE_QPS)}): "
+          f"max_abs_err={max(errs['h264_deblock_rows'])}; K3 edge cases "
+          f"({len(errs['h264_intra16_cols'])}: noise, smooth, masks random"
+          f" / all true / all false): max_abs_err="
+          f"{max(errs['h264_intra16_cols'])}")
+    gen = np.random.default_rng(2027)
+    for w, h in ((EDGE_W, EDGE_H), (1920, 1088)):
+        for qp, qp_c in ((0, 0), (51, 51), (28, 28)):
+            a = random_deblock_args(gen, w, h, qp, qp_c)
+            errs["h264_deblock_rows"].append(
+                h264_kernel_err(*pairs["h264_deblock_rows"], a))
+            for scan in (False, True):
+                a = random_intra16_args(gen, w, h, qp, qp_c, scan)
+                errs["h264_intra16_cols"].append(
+                    h264_kernel_err(*pairs["h264_intra16_cols"], a))
+    print(f"{tag} K2 / K3 on random planes {EDGE_W}x{EDGE_H} and "
+          f"1920x1088 (bS drawn from 0..4 everywhere; K3 with and without "
+          f"a random mask), qp / qp_c 0, 51, 28: max_abs_err "
+          f"{max(errs['h264_deblock_rows'][-6:])} / "
+          f"{max(errs['h264_intra16_cols'][-12:])}")
+    real = capture_h264_kernel_inputs(1920, 1088, 6)
+    ops = {"h264_deblock_rows": DEBLOCK_OPS_PER_MB,
+           "h264_intra16_cols": INTRA16_OPS_PER_MB}
+    numbers = {}
+    for name, (kernel, plain) in pairs.items():
+        numbers[name] = {}
+        for kind, args in zip(("IDR", "P"), real[name]):
+            n = h264_kernel_numbers(name, kernel, plain, args, ops[name])
+            numbers[name][kind] = n
+            errs[name].append(n["max_abs_err"])
+            label = {"h264_deblock_rows": "K2 deblock",
+                     "h264_intra16_cols": "K3 Intra_16x16 "
+                     + ("IDR loop" if kind == "IDR" else "intra-in-P scan")
+                     }[name]
+            print_h264_kernel_numbers(tag, f"{label}, 1080p {kind} frame",
+                                      n)
+        numbers[name]["max_abs_err"] = max(errs[name])
+        check(max(errs[name]) == 0, f"{name} differs from its plain version")
+        kernel.launches = 0
+    return numbers
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    from ceracoder_tpu_torch.ops.bitpack import merge_windows
+    from ceracoder_tpu_torch.ops.deblock import h264_deblock_rows
+    from ceracoder_tpu_torch.ops.intra import h264_intra16_cols
+
+    for fn in (merge_windows, h264_deblock_rows, h264_intra16_cols):
+        fn.launches = 0
+
+
+def read_launches() -> dict:
+    """Every kernel wrapper's launch count, by wrapper name."""
+    from ceracoder_tpu_torch.ops.bitpack import merge_windows
+    from ceracoder_tpu_torch.ops.deblock import h264_deblock_rows
+    from ceracoder_tpu_torch.ops.intra import h264_intra16_cols
+
+    return {fn.__name__: fn.launches
+            for fn in (merge_windows, h264_deblock_rows, h264_intra16_cols)}
+
+
+# ---------------------------------------------------------------------------
 # Main path and GPU-vs-CPU
 # ---------------------------------------------------------------------------
 
@@ -432,14 +824,13 @@ def check_stream(data: bytes, mbh: int) -> None:
 def phase_main_path(tag: str) -> dict:
     from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
     from ceracoder_tpu_torch.codec.h264.encoder import H264Encoder
-    from ceracoder_tpu_torch.ops.bitpack import merge_windows
 
     w, h, runs, run_len = 1920, 1088, 3, 10
     src = DeviceTestPatternSource(w, h, texture=6)
     enc = H264Encoder(w, h, qp=28, gop=60, cabac=False)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    merge_windows.launches = 0
+    reset_launches()
     frames, run_secs = [], []
     t0 = time.perf_counter()
     for r in range(runs):
@@ -450,7 +841,8 @@ def phase_main_path(tag: str) -> dict:
         torch.cuda.synchronize()
         run_secs.append(time.perf_counter() - t)
     secs = time.perf_counter() - t0
-    launches = merge_windows.launches
+    counts = read_launches()
+    launches = counts["merge_windows"]
     nf = runs * run_len
     check(len(frames) == nf, "frame count")
     check([f.keyframe for f in frames] == [True] + [False] * (nf - 1),
@@ -461,6 +853,9 @@ def phase_main_path(tag: str) -> dict:
     check(rec[0].shape == (h, w) and rec[1].shape == (h // 2, w // 2),
           "recon shapes")
     check(launches >= nf, f"K1 launched {launches} times for {nf} frames")
+    check(counts["h264_deblock_rows"] >= nf,
+          f"K2 launched {counts['h264_deblock_rows']} times for {nf} frames")
+    check(counts["h264_intra16_cols"] >= 1, "K3 not launched for the IDR")
     sizes = [len(f.data) for f in frames]
     out = {
         "frames": nf, "seconds": secs, "fps": nf / secs,
@@ -468,6 +863,7 @@ def phase_main_path(tag: str) -> dict:
         "run_seconds": run_secs,
         "bytes_idr": sizes[0], "bytes_p_mean": sum(sizes[1:]) / (nf - 1),
         "fallback_frames": enc.fallback_frames, "k1_launches": launches,
+        "launches": counts,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
         "first_two": b"".join(f.data for f in frames[:2]),
     }
@@ -477,7 +873,7 @@ def phase_main_path(tag: str) -> dict:
           f"{', '.join(f'{s:.3f}' for s in run_secs)} s)")
     print(f"{tag} main path bytes/frame: IDR {out['bytes_idr']}, P mean "
           f"{out['bytes_p_mean']:.1f}; fallback frames "
-          f"{out['fallback_frames']}; K1 launches {launches}; peak device "
+          f"{out['fallback_frames']}; kernel launches {counts}; peak device "
           f"memory {out['peak_mem_bytes']} B")
     return out
 
@@ -544,14 +940,13 @@ def check_hevc_frame(data: bytes, idr: bool) -> None:
 def phase_hevc_main_path(tag: str) -> dict:
     from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
     from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
-    from ceracoder_tpu_torch.ops.bitpack import merge_windows
 
     w, h, runs, run_len = 1920, 1088, 3, 10
     src = DeviceTestPatternSource(w, h, texture=6)
     enc = H265DeviceEncoder(w, h, qp=30, gop=60)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    merge_windows.launches = 0
+    reset_launches()
     frames, run_secs = [], []
     t0 = time.perf_counter()
     for r in range(runs):
@@ -562,7 +957,7 @@ def phase_hevc_main_path(tag: str) -> dict:
         torch.cuda.synchronize()
         run_secs.append(time.perf_counter() - t)
     secs = time.perf_counter() - t0
-    launches = {"merge_windows": merge_windows.launches}
+    launches = read_launches()
     nf = runs * run_len
     check(len(frames) == nf, "frame count")
     check([f.keyframe for f in frames] == [True] + [False] * (nf - 1),
@@ -574,8 +969,8 @@ def phase_hevc_main_path(tag: str) -> dict:
           and rec[2].shape == (h // 2, w // 2), "recon shapes")
     check(all(f._recon_dev[0].device.type == "cuda" for f in frames),
           "recon not on the card")
-    check(launches["merge_windows"] == 0,
-          "K1 launched on the HEVC path, which runs no hand kernel")
+    check(not any(launches.values()),
+          f"hand kernels launched on the HEVC path: {launches}")
     sizes = [len(f.data) for f in frames]
     out = {
         "frames": nf, "seconds": secs, "fps": nf / secs,
@@ -674,7 +1069,6 @@ def kernel_launches(fn) -> tuple[int, float]:
 def phase_cabac_main_path(tag: str) -> dict:
     from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
     from ceracoder_tpu_torch.codec.h264.encoder import H264Encoder
-    from ceracoder_tpu_torch.ops.bitpack import merge_windows
 
     w, h, runs, run_len = 1920, 1088, 3, 10
     src = DeviceTestPatternSource(w, h, texture=6)
@@ -683,7 +1077,7 @@ def phase_cabac_main_path(tag: str) -> dict:
     intra = IntraCount()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    merge_windows.launches = 0
+    reset_launches()
     frames, run_secs = [], []
     t0 = time.perf_counter()
     try:
@@ -695,13 +1089,18 @@ def phase_cabac_main_path(tag: str) -> dict:
             torch.cuda.synchronize()
             run_secs.append(time.perf_counter() - t)
         secs = time.perf_counter() - t0
-        launches = merge_windows.launches
+        counts = read_launches()
+        launches = counts["merge_windows"]
         peak = torch.cuda.max_memory_allocated()
-        # one more P frame, under the profiler: its kernel launches
+        # one more P frame and one more IDR, under the profiler: their
+        # kernel launches
         n = runs * run_len
         p_launches, p_device_ms = kernel_launches(
             lambda: enc.encode_run_async(source=src,
                                          indices=[n])[0].result())
+        idr_launches, idr_device_ms = kernel_launches(
+            lambda: enc.encode_run_async(source=src, indices=[n + 1],
+                                         force_idr=True)[0].result())
     finally:
         intra.close()
     nf = runs * run_len
@@ -714,6 +1113,13 @@ def phase_cabac_main_path(tag: str) -> dict:
     check(rec[0].shape == (h, w) and rec[1].shape == (h // 2, w // 2)
           and rec[2].shape == (h // 2, w // 2), "recon shapes")
     check(launches == 0, f"K1 launched {launches} times on the CABAC path")
+    check(counts["h264_deblock_rows"] >= nf
+          and counts["h264_intra16_cols"] >= nf,
+          f"K2 / K3 launched {counts} times for {nf} CABAC frames (the IDR "
+          "loop, the intra-in-P scan and the deblock of every frame)")
+    check(p_launches < 3000 and idr_launches < 3000,
+          f"{p_launches} CUDA launches for a P frame and {idr_launches} for "
+          "an IDR: the column loops are not in their kernels")
     check(len(intra.per_p) >= nf - 1 - enc.fallback_frames,
           "intra MB counts of the P frames")
     sizes = [len(f.data) for f in frames]
@@ -727,8 +1133,11 @@ def phase_cabac_main_path(tag: str) -> dict:
         "intra_mbs_per_p_min": min(per_p, default=0),
         "intra_mbs_per_p_max": max(per_p, default=0),
         "fallback_frames": enc.fallback_frames, "k1_launches": launches,
+        "launches": counts,
         "launches_per_p_frame": p_launches,
         "device_ms_per_p_frame": p_device_ms,
+        "launches_per_idr": idr_launches,
+        "device_ms_per_idr": idr_device_ms,
         "peak_mem_bytes": peak,
         "first_two": b"".join(f.data for f in frames[:2]),
     }
@@ -741,9 +1150,11 @@ def phase_cabac_main_path(tag: str) -> dict:
           f"{out['intra_mbs_per_p_mean']:.2f}, min "
           f"{out['intra_mbs_per_p_min']}, max "
           f"{out['intra_mbs_per_p_max']} (of {(h // 16) * (w // 16)}); "
-          f"fallback frames {out['fallback_frames']}; K1 launches "
-          f"{launches}; peak device memory {peak} B; one more P frame: "
-          f"{p_launches} CUDA launches, {p_device_ms:.3f} device ms")
+          f"fallback frames {out['fallback_frames']}; kernel launches "
+          f"{counts}; peak device memory {peak} B; one more P frame: "
+          f"{p_launches} CUDA launches, {p_device_ms:.3f} device ms; one "
+          f"more IDR: {idr_launches} CUDA launches, {idr_device_ms:.3f} "
+          f"device ms")
     return out
 
 
@@ -950,14 +1361,15 @@ class Timed:
         return timed
 
 
-def run_app_loop(job, warm: int, timed_frames: int, want_keys: list):
+def run_app_loop(job, warm: int, timed_frames: int, want_keys: list,
+                 kernels: tuple = ()):
     """CeracoderApp on `job`, fixed balancer, latency 2000 ms, realtime,
     to a loopback listener, the stall watchdog off; `warm` frames, then
-    `timed_frames` timed emit to emit. Checks and returns the numbers
-    phases 8 and 12 print."""
+    `timed_frames` timed emit to emit. Checks that the hand kernels
+    named in `kernels` were launched once per frame at least and the
+    others not at all; returns the numbers phases 8 and 12 print."""
     from ceracoder_tpu_torch.app.cli import CliOptions
     from ceracoder_tpu_torch.app.main import CeracoderApp
-    from ceracoder_tpu_torch.ops.bitpack import merge_windows
 
     listener = LoopbackListener()
     opts = CliOptions(job_file=str(job), addr=listener.addr,
@@ -999,7 +1411,7 @@ def run_app_loop(job, warm: int, timed_frames: int, want_keys: list):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    merge_windows.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     stop = threading.Event()
     with ThreadPoolExecutor(max_workers=1) as pool:
@@ -1011,7 +1423,7 @@ def run_app_loop(job, warm: int, timed_frames: int, want_keys: list):
             listener.close()
         gap, gap_at = watch.result()
     secs = time.perf_counter() - t0
-    launches = merge_windows.launches
+    launches = read_launches()
     check(rc == 0, f"app exited {rc}")
     check(len(emits) == total, f"{len(emits)} frames emitted, want {total}")
     window = emits[-1] - emits[warm - 1]
@@ -1019,7 +1431,10 @@ def run_app_loop(job, warm: int, timed_frames: int, want_keys: list):
     check([i for i, k in enumerate(keys) if k] == want_keys,
           f"keyframes at {[i for i, k in enumerate(keys) if k]}, want "
           f"{want_keys}")
-    check(launches == 0, f"K1 launched {launches} times in the app loop")
+    for name, n in launches.items():
+        check(n >= total if name in kernels else n == 0,
+              f"{name} launched {n} times in {total} frames of the app "
+              "loop")
     check(listener.nbytes > 0 or listener.kind == "srt",
           "the UDP listener received nothing")
     check(listener.sizes <= {1316}, f"received sizes {listener.sizes}")
@@ -1034,7 +1449,7 @@ def run_app_loop(job, warm: int, timed_frames: int, want_keys: list):
         "transport": listener.kind, "audio": app.audio is not None,
         "fallback_frames": app.encoder.fallback_frames,
         "peak_mem_bytes": torch.cuda.max_memory_allocated(),
-        "k1_launches": launches,
+        "launches": launches,
     }
 
 
@@ -1049,7 +1464,7 @@ def print_app_loop(tag: str, label: str, out: dict) -> None:
     print(f"{tag} {label} sent {out['bytes_sent']} B in {out['payloads']} "
           f"payloads of 1316 B ({out['ts_packets']} TS packets, continuity "
           f"unbroken), received {out['bytes_received']} B; fallback frames "
-          f"{out['fallback_frames']}; K1 launches {out['k1_launches']}; "
+          f"{out['fallback_frames']}; kernel launches {out['launches']}; "
           f"peak device memory {out['peak_mem_bytes']} B; longest time "
           f"the stall watchdog's position stood still after it moved: "
           f"{out['longest_watchdog_gap_s']:.3f} s, from frames "
@@ -1074,18 +1489,24 @@ def phase_app_loop(tag: str, tmpdir) -> dict:
 
 
 H264_APP_JOB = ROOT / "jobs" / "h264_test_1080p30"
-H264_APP_WARM, H264_APP_TIMED = 8, 16
+H264_APP_WARM, H264_APP_TIMED = 8, 120
 
 
 def phase_h264_app_loop(tag: str) -> dict:
-    out = run_app_loop(H264_APP_JOB, H264_APP_WARM, H264_APP_TIMED, [0])
+    from ceracoder_tpu_torch.app.main import STALL_CHECK_S
+
+    out = run_app_loop(H264_APP_JOB, H264_APP_WARM, H264_APP_TIMED, [0, 60, 120],
+                       ("h264_deblock_rows", "h264_intra16_cols"))
     out["job"] = {"file": "jobs/h264_test_1080p30",
                   "text": H264_APP_JOB.read_text(), "run": 8,
                   "balancer": "fixed", "latency_ms": 2000,
                   "realtime": True}
     print_app_loop(tag, "H.264 app loop, jobs/h264_test_1080p30 (test "
                    "pattern 1920x1080 at 30 frames/s, CABAC, gop 60, "
-                   "runs of 8; keyframe 0)", out)
+                   "runs of 8; keyframes 0, 60, 120)", out)
+    check(out["longest_watchdog_gap_s"] <= STALL_CHECK_S,
+          f"the stall watchdog's position stood still "
+          f"{out['longest_watchdog_gap_s']:.3f} s: a live job would exit")
     return out
 
 
@@ -1133,6 +1554,7 @@ def main() -> int:
 
     build_kernels(tag)
     k1 = phase_kernels(tag)
+    h264k = phase_h264_kernels(tag)
     main_out = phase_main_path(tag)
     phase_gpu_equals_cpu(tag, main_out)
     hevc = phase_hevc_main_path(tag)
@@ -1150,22 +1572,47 @@ def main() -> int:
     h264_app = phase_h264_app_loop(tag)
     print(json.dumps({"h264_app_loop": h264_app}))
 
+    def launches(name):
+        return {"launches_cavlc_path": main_out["launches"][name],
+                "launches_hevc_path": hevc["launches"][name],
+                "launches_app_loop": app["launches"][name],
+                "launches_cabac_path": cabac["launches"][name],
+                "launches_h264_app_loop": h264_app["launches"][name]}
     p = k1["P"]
     kernels = [{
-        "name": "merge_windows", "route": KERNELS["merge_windows"][1],
+        "name": "merge_windows", "route": KERNELS["merge_windows"][2],
         "source": "ceracoder_tpu_torch/csrc/merge_windows.cu",
-        "replaces": KERNELS["merge_windows"][0],
-        "launches": main_out["k1_launches"],
+        "replaces": KERNELS["merge_windows"][1],
+        "launches": main_out["launches"]["merge_windows"],
         "max_abs_err": max(k1["max_abs_err"], k1["IDR"]["max_abs_err"],
                            p["max_abs_err"]),
         "ms": p["ms"], "ms_spread": p["spread"], "plain_ms": p["plain_ms"],
         "bound_ms": p["bound_ms"], "bound_by": p["bound_by"],
         "bound_share": p["bound_share"], "library_ms": p["library_ms"],
         "library_i32_ms": p["library_i32_ms"], "design": "one-cta-per-row",
-        "launches_app_loop": app["k1_launches"],
-        "launches_cabac_path": cabac["k1_launches"],
-        "launches_h264_app_loop": h264_app["k1_launches"],
+        **launches("merge_windows"),
     }]
+    # K2 and K3 run on the CABAC path (the jobspec default), also on
+    # the CAVLC path and in the H.264 app loop
+    for src in ("h264_deblock", "h264_intra16"):
+        name, replaces, route = KERNELS[src]
+        n, idr = h264k[name]["P"], h264k[name]["IDR"]
+        kernels.append({
+            "name": name, "route": route,
+            "source": f"ceracoder_tpu_torch/csrc/{src}.cu",
+            "replaces": replaces,
+            "launches": cabac["launches"][name],
+            "max_abs_err": h264k[name]["max_abs_err"],
+            "ms": n["ms"], "ms_spread": n["spread"],
+            "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
+            "bound_by": n["bound_by"], "bound_share": n["bound_share"],
+            "library_ms": None, "graph_replay_ms": n["graph_ms"],
+            "plain_launches": n["plain_launches"],
+            "ms_idr": idr["ms"], "plain_ms_idr": idr["plain_ms"],
+            "graph_replay_ms_idr": idr["graph_ms"],
+            "bound_ms_idr": idr["bound_ms"],
+            "design": "one-cta-per-mb-row", **launches(name),
+        })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,15 +1,20 @@
 """The port's app on its device source (`kind = devtest`, the run loop
 with several runs in flight) against the JAX package's CeracoderApp on
-the CPU: identical TS bytes. 96x64 (the pattern's bouncing block needs
-a width over 64), runs of 4. The JAX app compiles its generate-and-
+the CPU: identical TS bytes. 112x64 (the pattern's bouncing block needs
+a width over 64; 7 CTB columns compile one per scan step), runs of 4. The JAX app compiles its generate-and-
 encode runs anew for each source it opens, so it runs once here."""
 
 import pytest
+import torch
 
 import ceracoder_tpu.app.main as j_main
 import ceracoder_tpu_torch.app.main as t_main
 from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
 from tests.test_torch_app import H, W, run_app
+
+# one intra-op thread: pytest-xdist workers share the cores, and at
+# these frame sizes torch's extra threads only spin
+torch.set_num_threads(1)
 
 N_DEV = 8
 GOP = 8

@@ -24,6 +24,10 @@ from ceracoder_tpu_torch.ops.bitpack import (
 )
 from chip_smoke import merge_edge_cases
 
+# one intra-op thread: pytest-xdist workers share the cores, and at
+# these frame sizes torch's extra threads only spin
+torch.set_num_threads(1)
+
 EDGE_CASES = merge_edge_cases()
 
 

@@ -21,6 +21,10 @@ from ceracoder_tpu_torch.codec.h264.device_entropy import (
 )
 from ceracoder_tpu_torch.ops.bitpack import i32_to_u32
 
+# one intra-op thread: pytest-xdist workers share the cores, and at
+# these frame sizes torch's extra threads only spin
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("max_coeff", [16, 15, 4])
 def test_encode_blocks_match_jax(max_coeff):

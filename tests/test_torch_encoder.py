@@ -8,13 +8,18 @@ CPU, which keeps these tests small."""
 
 import numpy as np
 import pytest
+import torch
 
 from ceracoder_tpu.app.source import DeviceTestPatternSource as JSource
 from ceracoder_tpu.codec.h264.encoder import H264Encoder as JEncoder
 from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
 from ceracoder_tpu_torch.codec.h264.encoder import H264Encoder
 
-W, H = 96, 64
+# one intra-op thread: pytest-xdist workers share the cores, and at
+# these frame sizes torch's extra threads only spin
+torch.set_num_threads(1)
+
+W, H = 112, 64      # 7 MB columns: JAX's column scans compile one per step
 
 
 def _frames(n, seed=0):

@@ -4,8 +4,9 @@ CPU: byte-identical streams across run boundaries, per-frame QPs and
 an IDR inside a run, with the device source, in the overflow case;
 against the numpy H265RowEncoder; and through the libavcodec oracle
 (tools/decode_oracle), which must decode the port's reconstruction
-bit-exactly. Sizes stay at 96x64: the JAX run executables compile
-slowly on the CPU."""
+bit-exactly. Sizes stay at 112x64: the JAX run executables compile
+slowly on the CPU, the more so the more CTB columns their scans unroll
+per step (7 columns: one; 6: six)."""
 
 import numpy as np
 import pytest
@@ -19,7 +20,11 @@ from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
 from ceracoder_tpu_torch.ops.h265 import LEVEL_CHUNK
 from tests.test_h265_rows import _panning, decode
 
-W, H = 96, 64
+# one intra-op thread: pytest-xdist workers share the cores, and at
+# these frame sizes torch's extra threads only spin
+torch.set_num_threads(1)
+
+W, H = 112, 64
 QPS = [30, 30, 33, 33, 28, 28]
 
 
@@ -43,7 +48,7 @@ def test_runs_with_per_frame_qps_match_jax_and_decode(tmp_path):
     """Two runs, per-frame QPs, gop 4: the IDR at frame 4 falls inside
     the second run. Same bytes as the JAX encoder; the oracle decodes
     every frame to the port's reconstruction."""
-    frames = _panning(6)
+    frames = _panning(6, W, H)
     runs = [frames[:3], frames[3:]]
     enc = _torch(qp=30, gop=4)
     a, results = _run(enc, runs, QPS)
@@ -95,7 +100,7 @@ def test_overflow_codes_dense_levels_exactly():
 
 
 def test_matches_row_encoder_stream():
-    frames = _panning(3)
+    frames = _panning(3, W, H)
     enc = _torch(qp=30, gop=50)
     row = H265RowEncoder(W, H, qp=30, gop=50)
     a, _ = _run(enc, [frames])
@@ -104,7 +109,7 @@ def test_matches_row_encoder_stream():
 
 
 def test_load_state_continues_a_jax_encoder():
-    frames = _panning(6)
+    frames = _panning(6, W, H)
     jenc = JEncoder(W, H, qp=30, gop=4)
     _run(jenc, [frames[:3]], QPS)
     enc = _torch(qp=30, gop=4)
@@ -121,12 +126,13 @@ def test_load_state_continues_a_jax_encoder():
 
 
 def test_odd_size_pads_like_jax():
-    """A 90x60 picture is edge-padded to the CTB grid on the device."""
-    frames = [tuple(p[:60, :90] if i == 0 else p[:30, :45]
-                    for i, p in enumerate(f)) for f in _panning(3)]
-    a, _ = _run(H265DeviceEncoder(90, 60, qp=31, gop=8, device="cpu"),
+    """A 106x60 picture is edge-padded to the CTB grid (W x H) on the
+    device."""
+    frames = [tuple(p[:60, :106] if i == 0 else p[:30, :53]
+                    for i, p in enumerate(f)) for f in _panning(3, W, H)]
+    a, _ = _run(H265DeviceEncoder(106, 60, qp=31, gop=8, device="cpu"),
                 [frames])
-    b, _ = _run(JEncoder(90, 60, qp=31, gop=8), [frames])
+    b, _ = _run(JEncoder(106, 60, qp=31, gop=8), [frames])
     assert a == b
 
 
@@ -135,7 +141,7 @@ def test_gpu_matches_cpu():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "False)")
-    frames = _panning(6)
+    frames = _panning(6, W, H)
     runs = [frames[:3], frames[3:]]
     gpu, results = _run(H265DeviceEncoder(W, H, qp=30, gop=4), runs, QPS)
     cpu, _ = _run(_torch(qp=30, gop=4), runs, QPS)

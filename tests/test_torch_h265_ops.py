@@ -16,6 +16,10 @@ from ceracoder_tpu.codec.h265.tables import T4, T8, T16
 from ceracoder_tpu_torch.codec.h265.rowslice import densify_levels
 from tests.test_h265_rows import _panning
 
+# one intra-op thread: pytest-xdist workers share the cores, and at
+# these frame sizes torch's extra threads only spin
+torch.set_num_threads(1)
+
 W, H = 96, 64
 
 

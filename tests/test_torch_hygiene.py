@@ -36,6 +36,29 @@ def test_port_imports_no_jax():
     assert bad == []
 
 
+def test_every_kernel_source_is_built_through_cuda_build():
+    """Each csrc/*.cu is one kernel: a wrapper loads it through
+    utils/cuda_build.py's load_library (nvcc, keyed build into build/,
+    ctypes), with its launch count beside it, and chip_smoke.py builds
+    and checks it; nothing goes through PyTorch's extension builder."""
+    import chip_smoke
+
+    pkg = ROOT / "ceracoder_tpu_torch"
+    sources = sorted(p.stem for p in (pkg / "csrc").glob("*.cu"))
+    assert {"merge_windows", "h264_deblock", "h264_intra16"} <= set(sources)
+    assert sources == sorted(chip_smoke.KERNELS)
+    text = {f.relative_to(ROOT).as_posix(): f.read_text()
+            for f in pkg.rglob("*.py")}
+    for name in sources:
+        loaders = [f for f, t in text.items()
+                   if f'load_library("{name}")' in t]
+        assert len(loaders) == 1, (name, loaders)
+        wrapper = chip_smoke.KERNELS[name][0]
+        assert f"{wrapper}.launches += 1" in text[loaders[0]], name
+    assert not [f for f, t in text.items()
+                if "torch.utils.cpp_extension" in t]
+
+
 def test_entry_points_default_to_cuda(monkeypatch):
     from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
     from ceracoder_tpu_torch.codec.h264.encoder import H264Encoder

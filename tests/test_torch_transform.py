@@ -11,6 +11,10 @@ import jax.numpy as jnp
 from ceracoder_tpu.ops import transform as J
 from ceracoder_tpu_torch.ops import transform as P
 
+# one intra-op thread: pytest-xdist workers share the cores, and at
+# these frame sizes torch's extra threads only spin
+torch.set_num_threads(1)
+
 
 def _eq(a, b):
     a = np.asarray(a)
