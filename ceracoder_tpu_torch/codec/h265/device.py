@@ -11,10 +11,16 @@ capacity is coded from its dense levels, kept on the device until the
 run's results are read: the same arrays, so the same bytes as the JAX
 encoder's exact fallback.
 
+With `sao=True` each frame's deblocked reconstruction also goes
+through SAO on the device (ops/h265.py: sao_estimate_dev,
+sao_apply_dev); the filtered planes are the next reference, and the
+per-CTB parameters reach the host in the same pinned buffer as the
+packed rows.
+
 The per-frame entry points (`encode_frame`, `encode_frame_async`, the
 app's low-delay loop) are runs of one frame.
 
-Not ported yet (ROADMAP.md): SAO, the inter TU split, B frames
+Not ported yet (ROADMAP.md): the inter TU split, B frames
 (`push_frame`, `flush`) and the Python entropy spec.
 """
 
@@ -52,10 +58,10 @@ LEVEL_KEYS = ("luma_lv", "cb_lv", "cr_lv")
 
 class H265DeviceEncoder:
     """IDR + low-delay-P HEVC encoder, device compute + native entropy,
-    byte-identical to the JAX package's H265DeviceEncoder in its default
-    configuration: in-loop deblocking on, one tile per CTB row, native
-    entropy; no SAO, inter TU split or B frames (later slices of the
-    port, ROADMAP.md).
+    byte-identical to the JAX package's H265DeviceEncoder with in-loop
+    deblocking on, one tile per CTB row and native entropy, with or
+    without SAO (`sao`); no inter TU split or B frames (later slices of
+    the port, ROADMAP.md).
 
     Runs on `device` (default ``cuda``; raises without a card unless
     ``device="cpu"``). `fallback_frames` counts frames whose sparse
@@ -65,7 +71,7 @@ class H265DeviceEncoder:
     """
 
     def __init__(self, width: int, height: int, qp: int = 32,
-                 gop: int = 60, device=None):
+                 gop: int = 60, device=None, sao: bool = False):
         if width % 2 or height % 2:
             raise ValueError("4:2:0 requires even dimensions (the "
                              "conformance window crops in 2-sample "
@@ -74,7 +80,8 @@ class H265DeviceEncoder:
         self.width, self.height = width, height
         self.qp = qp
         self.gop = max(1, gop)
-        self.params = HevcParams(width=width, height=height, qp=qp)
+        self.sao = sao
+        self.params = HevcParams(width=width, height=height, qp=qp, sao=sao)
         self.pw = -(-width // CTB) * CTB
         self.ph = -(-height // CTB) * CTB
         self._ref = None              # device recon planes (padded size)
@@ -194,35 +201,43 @@ class H265DeviceEncoder:
                           (self.ph // 2, self.pw // 2)))
         outs = encode_run_rows(self._planes_fn(frames, source, indices),
                                idr_flags, qp_arr, qpc_arr, prev_ref, caps,
-                               chunks)
+                               chunks, sao=self.sao)
         self._ref = outs[-1]["recon"]
-        rows = self._rows_to_host([o["packed"] for o in outs])
+        rows = self._rows_to_host(outs)
         return [self._make_run_pending(
             outs[f], rows, f, bool(idr_flags[f]), int(qp_arr[f]),
             int(pocs[f]), caps[f], chunks[f]) for f in range(nf)]
 
-    def _rows_to_host(self, packed: list[torch.Tensor]):
-        """Start the copy of every frame's packed row into one pinned
-        host buffer (non-blocking, on the current stream); return a
-        function that waits for it once and yields the host rows."""
+    def _rows_to_host(self, outs: list[dict]):
+        """Start the copy of every frame's packed row, and with SAO its
+        parameters, into one pinned host buffer (non-blocking, on the
+        current stream); return a function that waits for it and yields
+        (row, SAO parameters or None) per frame."""
+        nch, ncw = self.ph // CTB, self.pw // CTB
+        parts = [o["packed"][0] for o in outs]
+        if self.sao:
+            parts += [o["sao"].reshape(-1).view(torch.uint8) for o in outs]
+        nf = len(outs)
         if self.device.type != "cuda":
-            host = [p[0].numpy() for p in packed]
-            return lambda: host
-        sizes = [p.shape[1] for p in packed]
-        buf = torch.empty(sum(sizes), dtype=torch.uint8, pin_memory=True)
-        starts = np.concatenate([[0], np.cumsum(sizes)])
-        for p, s0, s1 in zip(packed, starts, starts[1:]):
-            buf[s0:s1].copy_(p[0], non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        host = buf.numpy()
-        waited = []
+            host, done = [p.numpy() for p in parts], None
+        else:
+            sizes = [p.shape[0] for p in parts]
+            buf = torch.empty(sum(sizes), dtype=torch.uint8,
+                              pin_memory=True)
+            starts = np.concatenate([[0], np.cumsum(sizes)])
+            for p, s0, s1 in zip(parts, starts, starts[1:]):
+                buf[s0:s1].copy_(p, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
+            # the views keep the pinned buffer alive
+            host = [buf.numpy()[s0:s1] for s0, s1 in zip(starts, starts[1:])]
 
         def get():
-            if not waited:
+            if done is not None:
                 done.synchronize()
-                waited.append(buf)      # the pinned buffer lives on
-            return [host[s0:s1] for s0, s1 in zip(starts, starts[1:])]
+            sao = ([p.view(np.int32).reshape(nch, ncw, 3, 6)
+                    for p in host[nf:]] if self.sao else [None] * nf)
+            return list(zip(host[:nf], sao))
         return get
 
     def _unpack_row(self, row: np.ndarray, cap: int, chunk: int, extra,
@@ -270,8 +285,10 @@ class H265DeviceEncoder:
                     for k, a in zip(LEVEL_KEYS, out["dense_lv"])}
 
         def finish() -> EncodedFrame:
-            _, arrays = self._unpack_row(rows()[f], cap, chunk, extra,
-                                         dense)
+            row, sao = rows()[f]
+            _, arrays = self._unpack_row(row, cap, chunk, extra, dense)
+            if sao is not None:
+                arrays["sao"] = sao
             rbsps = self._entropy(arrays, idr=idr, poc=poc, qp=qp)
             ntype = NAL_IDR_W_RADL if idr else NAL_TRAIL_R
             data = b"".join(

@@ -90,7 +90,8 @@ def entropy_rows_native(p: HevcParams, arrays: dict, qp: int, idr: bool,
     """Native (C++) entropy stage of an I or P picture: every CTB row is
     one tile of a single slice (a one-row picture: one plain slice);
     returns the slice's RBSP bytes, which the caller wraps in a NAL
-    unit."""
+    unit. With `p.sao`, arrays["sao"] holds each CTB's (nch, ncw, 3, 6)
+    SAO parameters (ops/h265.py: sao_estimate_dev)."""
     lib = load_hevc_entropy()
 
     is_intra = np.ascontiguousarray(arrays["is_intra"], np.uint8)
@@ -126,9 +127,16 @@ def entropy_rows_native(p: HevcParams, arrays: dict, qp: int, idr: bool,
     out = np.zeros(cap, np.uint8)
     row_sizes = np.zeros(nch, np.int32)
     nt = min(nch, os.cpu_count() or 1)
+    sao = None
+    if p.sao:
+        sao = np.ascontiguousarray(arrays["sao"], np.int32)
+        if sao.shape != (nch, ncw, 3, 6):
+            raise ValueError(f"SAO parameters {sao.shape}, need "
+                             f"{(nch, ncw, 3, 6)}")
     total = lib.hevc_entropy_rows(
         nch, ncw, int(idr), 0, int(p.tiles),   # is_b = 0
-        0, None, None,                         # no TU split, no SAO
+        0, None,                               # no TU split
+        None if sao is None else sao.ctypes.data_as(ctypes.c_void_p),
         hdr_bytes.ctypes.data_as(ctypes.c_void_p),
         hdr_bits.ctypes.data_as(ctypes.c_void_p), stride,
         ctx.ctypes.data_as(ctypes.c_void_p), len(ctx),

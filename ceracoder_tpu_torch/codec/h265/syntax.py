@@ -11,8 +11,8 @@ SURVEY.md §2.2).
 Copy of ceracoder_tpu/codec/h265/syntax.py, cut to the port's one
 operating point: the port keeps its own copy so that it imports nothing
 of the JAX package. That point is low-delay I/P (no reordering, one
-reference), no PCM, no SAO, no inter TU split, in-loop deblocking on
-and one tile per CTB row in a single slice.
+reference), no PCM, no inter TU split, in-loop deblocking on, SAO
+optional, and one tile per CTB row in a single slice.
 """
 
 from __future__ import annotations
@@ -66,6 +66,8 @@ class HevcParams:
     log2_min_cb: int = 4
     log2_min_tb: int = 2
     log2_max_tb: int = 4
+    # sample adaptive offset (frame post-pass after deblocking)
+    sao: bool = False
 
     @property
     def tiles(self) -> bool:
@@ -145,7 +147,7 @@ def write_sps(p: HevcParams) -> bytes:
     w.ue(0)         # max_transform_hierarchy_depth_intra
     w.flag(0)       # scaling_list_enabled_flag
     w.flag(0)       # amp_enabled_flag
-    w.flag(0)       # sample_adaptive_offset_enabled_flag
+    w.flag(p.sao)   # sample_adaptive_offset_enabled_flag
     w.flag(0)       # pcm_enabled_flag
     w.ue(0)         # num_short_term_ref_pic_sets
     w.flag(0)       # long_term_ref_pics_present_flag
@@ -225,12 +227,17 @@ def slice_header_bits(p: HevcParams, idr: bool = True,
         w.ue(ref_poc_delta - 1)   # delta_poc_s0_minus1[0]
         w.flag(1)           # used_by_curr_pic_s0_flag[0]
         # (no temporal MVP flag: sps_temporal_mvp_enabled_flag = 0)
+    if p.sao:
+        w.flag(1)           # slice_sao_luma_flag
+        w.flag(1)           # slice_sao_chroma_flag
+    if not idr:
         w.flag(0)           # num_ref_idx_active_override_flag
         w.ue(3)             # five_minus_max_num_merge_cand -> 2 cands
-    # (no SAO; no deblocking override)
+    # (no deblocking override)
     w.se(qp - 26)   # slice_qp_delta
-    # present when the PPS enables cross-slice filtering and deblocking
-    # is not disabled (spec 7.3.6.1)
+    # present when the PPS enables cross-slice filtering and SAO is on
+    # or deblocking is not disabled (spec 7.3.6.1): deblocking is always
+    # on here, so `p.deblock or p.sao` always holds
     w.flag(1)       # slice_loop_filter_across_slices_enabled_flag
     if p.tiles:
         # entry points of tiles 2..N (spec 7.4.7.1): sizes of the

@@ -24,12 +24,18 @@ bitstream. The codec is integer-exact, and so is every op here:
   keeps the CU grid trailing for the TPU's lanes.
 - QPs are host ints: the port runs frame by frame.
 
-Not ported here (later slices): SAO, the inter TU split, B frames and
-the legacy whole-frame motion search helpers.
+The IDR column loop runs in K4 (`h265_intra_cols`, csrc/h265_intra.cu)
+on a card, in its plain version `_i_frame_cols_ref` on the CPU. SAO is
+plain torch (statistics by scatter-adds in place of the JAX code's
+per-band masked sums).
+
+Not ported here (later slices): the inter TU split, B frames and the
+legacy whole-frame motion search helpers.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import numpy as np
@@ -38,6 +44,11 @@ import torch
 from ceracoder_tpu_torch.codec.h265.rowslice import (
     INTRA_BIAS_DEN,
     INTRA_BIAS_NUM,
+)
+from ceracoder_tpu_torch.codec.h265.sao import (
+    SAO_BITS_CHROMA,
+    SAO_BITS_LUMA,
+    SAO_LAMBDA,
 )
 from ceracoder_tpu_torch.codec.h265.tables import (
     BETA_TABLE,
@@ -50,6 +61,7 @@ from ceracoder_tpu_torch.codec.h265.tables import (
     T16,
     TC_TABLE,
 )
+from ceracoder_tpu_torch.utils.device import check_kernel_args
 
 CTB = 16
 I32 = torch.int32
@@ -81,6 +93,16 @@ WIN_L = 26                       # luma window (covers +-1 refine+qpel)
 WIN_C = 11                       # chroma window (8 + 4-tap reach)
 
 LEVEL_CHUNK = 6144       # sparse-level entries in chunk 0 of a packed row
+
+# edge-offset classes: the two neighbours (dy0, dx0), (dy1, dx1) of a
+# sample (horizontal, vertical, 135 and 45 degrees)
+_EO_NEIGHBORS = ((0, -1, 0, 1), (-1, 0, 1, 0),
+                 (-1, -1, 1, 1), (-1, 1, 1, -1))
+# edge category by sign(p - n0) + sign(p - n1) + 2: a local minimum is 1,
+# a concave corner 2, a convex corner 3, a local maximum 4, the rest 0
+_EO_CATEGORY = (1, 2, 0, 3, 4)
+# edge categories 1, 2 take offsets >= 0, categories 3, 4 offsets <= 0
+_EO_FORCE_SIGN = (1, 1, -1, -1)
 
 
 def _untimed(name: str, fn):
@@ -121,6 +143,8 @@ def _consts(device: torch.device) -> dict:
         "modes": i32(_MODES),
         "sub_dy": i64(_SUB_DY), "sub_dx": i64(_SUB_DX),
         "c_dy": i64(_C_DY), "c_dx": i64(_C_DX),
+        "eo_category": i32(_EO_CATEGORY),
+        "eo_force_sign": i64(_EO_FORCE_SIGN),
     }
 
 
@@ -744,10 +768,11 @@ def _intra_col(ly, lu, lv, sy, su, sv, qp: int, qp_c: int):
     return c["modes"][midx], (lv_y, lv_u, lv_v), (rec_y, rec_u, rec_v)
 
 
-def _i_frame_core(y, u, v, qp: int, qp_c: int):
-    """Intra frame: a loop over the CTB columns, every CTB row at once
-    (rows are independent slices). The carry is each row's right recon
-    column, 128 before column 0 (the spec's no-neighbour value)."""
+def _i_frame_cols_ref(y, u, v, qp: int, qp_c: int):
+    """Plain PyTorch version of K4 (`h265_intra_cols`): a loop over the
+    CTB columns, every CTB row at once (rows are independent slices).
+    The carry is each row's right recon column, 128 before column 0
+    (the spec's no-neighbour value)."""
     y, u, v = (p.to(I32) for p in (y, u, v))
     h, w = y.shape
     nch, ncw = h // CTB, w // CTB
@@ -774,6 +799,84 @@ def _i_frame_core(y, u, v, qp: int, qp_c: int):
         "recon": tuple(_from_cols(r).to(torch.uint8)
                        for r in (rec_y, rec_u, rec_v)),
     }
+
+
+def _check_intra_cols(y, u, v, qp: int, qp_c: int) -> None:
+    """Raise on what K4 does not take."""
+    if y.dim() != 2 or y.shape[0] % CTB or y.shape[1] % CTB or y.numel() == 0:
+        raise ValueError(f"h265_intra_cols: y {tuple(y.shape)} is not "
+                         "(H, W) in whole 16x16 CTBs")
+    h, w = y.shape
+    check_kernel_args("h265_intra_cols", [
+        ("y", y, torch.uint8, (h, w)),
+        ("u", u, torch.uint8, (h // 2, w // 2)),
+        ("v", v, torch.uint8, (h // 2, w // 2))], (qp, qp_c))
+
+
+@functools.lru_cache(maxsize=None)
+def _intra_launcher():
+    """K4's C entry point (built and loaded at first use)."""
+    from ceracoder_tpu_torch.utils.cuda_build import load_library
+
+    fn = load_library("h265_intra").h265_intra_launch
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def h265_intra_cols(y, u, v, qp: int, qp_c: int) -> dict:
+    """HEVC intra coding of every CTB of a frame, column after column
+    (K4); arguments and result as `_i_frame_cols_ref`: y (H, W) uint8
+    with H, W multiples of 16, u and v (H/2, W/2) uint8, all contiguous.
+
+    On a CUDA tensor this launches the kernel of csrc/h265_intra.cu (one
+    CTA per CTB row, the CTB columns in a loop; it also writes the
+    constant is_intra, mv and tu_split) on the current stream, or
+    raises; on a CPU tensor it runs `_i_frame_cols_ref`.
+    `h265_intra_cols.launches` counts kernel launches."""
+    qp, qp_c = int(qp), int(qp_c)
+    _check_intra_cols(y, u, v, qp, qp_c)
+    if y.device.type == "cpu":
+        return _i_frame_cols_ref(y, u, v, qp, qp_c)
+    if y.device.type != "cuda":
+        raise ValueError(f"h265_intra_cols: unsupported device {y.device}")
+    nch, ncw = y.shape[0] // CTB, y.shape[1] // CTB
+
+    def empty(*shape, dtype=I32):
+        return torch.empty((nch, ncw, *shape), dtype=dtype, device=y.device)
+    out = {"is_intra": empty(dtype=torch.bool), "mode": empty(),
+           "mv": empty(2), "tu_split": empty(dtype=torch.bool),
+           "luma_lv": empty(CTB, CTB), "cb_lv": empty(CTB // 2, CTB // 2),
+           "cr_lv": empty(CTB // 2, CTB // 2),
+           "recon": (torch.empty_like(y), torch.empty_like(u),
+                     torch.empty_like(v))}
+    launch = _intra_launcher()
+    with torch.cuda.device(y.device):
+        stream = torch.cuda.current_stream(y.device).cuda_stream
+        err = launch(y.data_ptr(), u.data_ptr(), v.data_ptr(),
+                     *(out[k].data_ptr() for k in ("mode", "luma_lv",
+                                                   "cb_lv", "cr_lv")),
+                     *(p.data_ptr() for p in out["recon"]),
+                     *(out[k].data_ptr() for k in ("is_intra", "tu_split",
+                                                   "mv")),
+                     nch, ncw, qp, qp_c, stream)
+    if err != 0:
+        raise RuntimeError(f"h265_intra_cols kernel launch failed: CUDA "
+                           f"error {err}")
+    h265_intra_cols.launches += 1
+    return out
+
+
+h265_intra_cols.launches = 0
+
+
+def _i_frame_core(y, u, v, qp: int, qp_c: int) -> dict:
+    """Intra frame: every CTB intra-coded from its left neighbour (rows
+    are independent slices). The CTB columns run in `h265_intra_cols`
+    (K4 on a card, the plain loop on the CPU)."""
+    return h265_intra_cols(y.contiguous(), u.contiguous(), v.contiguous(),
+                           qp, qp_c)
 
 
 def compact_slots(flat, cap: int):
@@ -934,6 +1037,201 @@ def _inter_frame_tail(y, u, v, pred_y, pred_u, pred_v, qp: int,
 
 
 # ---------------------------------------------------------------------------
+# SAO (spec 8.7.3): per-CTB offsets after the deblock
+# ---------------------------------------------------------------------------
+
+def _eo_category_dev(p, n0, n1):
+    lut = _consts(p.device)["eo_category"]
+    return lut[(torch.sign(p - n0) + torch.sign(p - n1) + 2).long()]
+
+
+def _offset_gain_dev(sums, cnts, force_sign=None):
+    """Each class's offset (the rounded mean of source - recon, at most
+    7 in magnitude, clamped to the sign `force_sign` asks for where it
+    is +-1) and its distortion gain 2*off*sum - cnt*off^2; an offset
+    that gains nothing is 0, and so is its gain. int64 (sums, cnts),
+    force_sign an int tensor broadcast against them, or None."""
+    cnts = cnts.clamp(min=1)
+    raw = (2 * sums.abs() + cnts) // (2 * cnts)
+    off = raw.clamp(max=7) * torch.sign(sums)
+    if force_sign is not None:
+        off = torch.where(force_sign > 0, off.clamp(min=0),
+                          torch.where(force_sign < 0, off.clamp(max=0), off))
+    gain = 2 * off * sums - cnts * off * off
+    return torch.where(gain > 0, off, 0), gain.clamp(min=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sao_geometry(h: int, w: int, n: int, device: torch.device):
+    """Per-sample tables of an (h, w) plane in n x n CTBs: the CTB index
+    (row-major), the CTB-interior mask (the estimator's edge classes
+    never read across a CTB border) and, per edge class, where both
+    neighbours lie inside the picture (the filter's mask). Outside
+    these masks a sample's category is never read, so what lies past
+    the picture's edge (the JAX code's jnp.roll wraps, `_eo_categories`
+    pads) does not matter."""
+    ys = torch.arange(h, device=device)[:, None]
+    xs = torch.arange(w, device=device)[None, :]
+    ctb = (ys // n) * (w // n) + xs // n
+    iy, ix = ys % n, xs % n
+    interior = (iy > 0) & (iy < n - 1) & (ix > 0) & (ix < n - 1)
+    ok = torch.stack([(ys + dy0 >= 0) & (ys + dy0 < h) & (ys + dy1 >= 0)
+                      & (ys + dy1 < h) & (xs + dx0 >= 0) & (xs + dx0 < w)
+                      & (xs + dx1 >= 0) & (xs + dx1 < w)
+                      for dy0, dx0, dy1, dx1 in _EO_NEIGHBORS])
+    return ctb, interior, ok
+
+
+def _eo_categories(r):
+    """(4, H, W) edge category of every int32 sample of r for each edge
+    class; neighbours past the picture's edge read a zero pad (masked
+    by every caller, see _sao_geometry)."""
+    h, w = r.shape
+    rp = torch.nn.functional.pad(r, (1, 1, 1, 1))
+
+    def shifted(dy, dx):
+        return rp[1 + dy:1 + dy + h, 1 + dx:1 + dx + w]
+    n0 = torch.stack([shifted(dy0, dx0) for dy0, dx0, _, _ in _EO_NEIGHBORS])
+    n1 = torch.stack([shifted(dy1, dx1) for _, _, dy1, dx1 in _EO_NEIGHBORS])
+    return _eo_category_dev(r, n0, n1)
+
+
+def _plane_categories(rec_planes) -> list:
+    return [_eo_categories(p.to(I32)) for p in rec_planes]
+
+
+def _class_sums(key, diff, nbins: int):
+    """Per bin of `key` (int64, shaped like diff): the number of samples
+    and the sum of diff (int64, exact in any order of addition)."""
+    key = key.reshape(-1)
+    zeros = torch.zeros(nbins, dtype=torch.int64, device=key.device)
+    cnts = zeros.scatter_add(0, key, torch.ones_like(key))
+    sums = zeros.scatter_add(0, key, diff.reshape(-1).to(torch.int64))
+    return sums, cnts
+
+
+def _sao_plane_stats(src, rec, n: int, cats) -> dict:
+    """Per-CTB edge-class and band statistics of one plane (cats: its
+    `_eo_categories`). Returns eo_off (4, nch, ncw, 4) and eo_gain (4,
+    nch, ncw) per edge class, bo_off (nch, ncw, 32) per band and bo_win
+    (nch, ncw, 29), the gain of the 4 bands from each start position."""
+    r = rec.to(I32)
+    diff = src.to(I32) - r
+    h, w = r.shape
+    nch, ncw = h // n, w // n
+    n_ctb = nch * ncw
+    ctb, interior, _ = _sao_geometry(h, w, n, r.device)
+    # edge classes: samples off the CTB interior count in category 0
+    cat = torch.where(interior, cats, 0)
+    cls = torch.arange(4, device=r.device)[:, None, None]
+    sums, cnts = _class_sums((cls * n_ctb + ctb) * 5 + cat,
+                             diff.expand(4, h, w), 4 * n_ctb * 5)
+    eo_off, eo_gain = _offset_gain_dev(sums.reshape(4, n_ctb, 5)[..., 1:],
+                                       cnts.reshape(4, n_ctb, 5)[..., 1:],
+                                       _consts(r.device)["eo_force_sign"])
+    # bands of 8 sample values
+    sums, cnts = _class_sums(ctb * 32 + (r >> 3), diff, n_ctb * 32)
+    bo_off, gb = _offset_gain_dev(sums.reshape(n_ctb, 32),
+                                  cnts.reshape(n_ctb, 32))
+    acc = torch.nn.functional.pad(torch.cumsum(gb, -1), (1, 0))
+    return {"eo_off": eo_off.reshape(4, nch, ncw, 4),
+            "eo_gain": eo_gain.sum(-1).reshape(4, nch, ncw),
+            "bo_off": bo_off.reshape(nch, ncw, 32),
+            "bo_win": (acc[:, 4:] - acc[:, :-4]).reshape(nch, ncw, 29)}
+
+
+def _sao_pick(stats_list, band_only: bool = False):
+    """Choose (type, class, offsets per plane) maximizing the gain
+    summed over the planes' stats (one for luma, two for chroma): the
+    band offset at the first position of the largest window gain, then
+    each edge class in turn where it gains strictly more. Returns (type
+    (nch, ncw), class, [offsets (nch, ncw, 4) per plane], gain)."""
+    win = sum(s["bo_win"] for s in stats_list)
+    bp = _argmin_first(-win, -1)                 # first maximum
+    best_gain = win.gather(-1, bp[..., None])[..., 0]      # >= 0
+    take = best_gain > 0
+    bt = take.to(torch.int64)
+    bc = torch.where(take, bp, 0)
+    idx = bp[..., None] + torch.arange(4, device=bp.device)
+    boffs = [torch.where(take[..., None], s["bo_off"].gather(-1, idx), 0)
+             for s in stats_list]
+    if not band_only:
+        for cls in range(4):
+            g = sum(s["eo_gain"][cls] for s in stats_list)
+            take = g > best_gain
+            best_gain = torch.where(take, g, best_gain)
+            bt = torch.where(take, 2, bt)
+            bc = torch.where(take, cls, bc)
+            boffs = [torch.where(take[..., None], s["eo_off"][cls], o)
+                     for s, o in zip(stats_list, boffs)]
+    return bt, bc, boffs, best_gain
+
+
+def sao_estimate_dev(src_planes, rec_planes, qp: int, cats=None):
+    """SAO parameters of one frame from its source and deblocked planes:
+    luma picks band or edge offsets, chroma band offsets shared by Cb
+    and Cr; a component whose gain does not exceed lambda(qp) times its
+    syntax bits / 16 stays off. `cats` may hold each plane's
+    `_eo_categories` (sao_frame_dev shares them with the filter).
+    Returns (nch, ncw, 3, 6) int32: per CTB and component (type, class,
+    4 offsets)."""
+    lam = SAO_LAMBDA[min(max(int(qp), 0), 69)]
+    cats = cats or _plane_categories(rec_planes)
+    stats_y = _sao_plane_stats(src_planes[0], rec_planes[0], CTB, cats[0])
+    ty, cy, (oy,), gy = _sao_pick([stats_y])
+    keep_y = gy > (lam * SAO_BITS_LUMA) // 16
+    stats_c = [_sao_plane_stats(s, r, CTB // 2, c)
+               for s, r, c in zip(src_planes[1:], rec_planes[1:], cats[1:])]
+    tc, cc, (ou, ov), gc = _sao_pick(stats_c, band_only=True)
+    keep_c = gc > (lam * SAO_BITS_CHROMA) // 16
+
+    def comp(t, c, offs, keep):
+        p = torch.cat([t[..., None], c[..., None], offs], dim=-1)
+        return torch.where(keep[..., None], p, 0)
+    return torch.stack([comp(ty, cy, oy, keep_y), comp(tc, cc, ou, keep_c),
+                        comp(tc, cc, ov, keep_c)], dim=2).to(I32)
+
+
+def sao_apply_dev(rec_planes, params, cats=None):
+    """Apply SAO parameters (sao_estimate_dev) to the deblocked planes:
+    band offsets to the 4 bands from the CTB's start band, edge offsets
+    by each sample's category in the CTB's class, with neighbours across
+    CTB borders but not across the picture's edge (`cats` as for
+    sao_estimate_dev). Returns uint8 planes."""
+    outs = []
+    cats = cats or _plane_categories(rec_planes)
+    for ci, rec in enumerate(rec_planes):
+        n = CTB if ci == 0 else CTB // 2
+        r = rec.to(I32)
+        h, w = r.shape
+        nch, ncw = h // n, w // n
+        # the CTB's (type, class, 4 offsets) at each sample: (H, W, 6)
+        full = params[:, None, :, None, ci].expand(nch, n, ncw, n, 6)
+        full = full.reshape(h, w, 6)
+        t_full, c_full, offs = full[..., 0], full[..., 1].long(), full[..., 2:]
+        band = (r >> 3) - c_full
+        in_band = (t_full == 1) & (band >= 0) & (band < 4)
+        _, _, ok = _sao_geometry(h, w, n, r.device)
+        cls = c_full.clamp(0, 3)[None]
+        cat = torch.where(ok.gather(0, cls)[0], cats[ci].gather(0, cls)[0],
+                          0)
+        is_eo = (t_full == 2) & (cat > 0)
+        k = torch.where(in_band, band, torch.where(is_eo, cat - 1, 0))
+        delta = torch.where(in_band | is_eo,
+                            offs.gather(-1, k[..., None].long())[..., 0], 0)
+        outs.append((r + delta).clamp(0, 255).to(torch.uint8))
+    return tuple(outs)
+
+
+def sao_frame_dev(src_planes, rec_planes, qp: int):
+    """SAO of one frame: (sao_estimate_dev's parameters, sao_apply_dev's
+    filtered planes), each plane's edge categories computed once."""
+    cats = _plane_categories(rec_planes)
+    params = sao_estimate_dev(src_planes, rec_planes, qp, cats)
+    return params, sao_apply_dev(rec_planes, params, cats)
+
+
+# ---------------------------------------------------------------------------
 # run loop and the packed transfer rows
 # ---------------------------------------------------------------------------
 
@@ -1019,14 +1317,17 @@ def _pack_frame(o, cap: int, chunk: int) -> dict:
 
 
 def encode_frame_row(y, u, v, ref, idr: bool, qp: int, qp_c: int,
-                     cap: int, chunk: int, stage=_untimed) -> dict:
+                     cap: int, chunk: int, stage=_untimed,
+                     sao: bool = False) -> dict:
     """One frame on the device: its core (stage "intra_core", or
     "motion" and "p_tail" against the reference planes `ref`), the
-    deblock ("deblock") and its transfer row ("compact_pack"). Returns
-    "packed" (1, total) uint8 and "lv_rest" (see _pack_run_streams),
-    "dense_lv" (the frame's luma, cb and cr levels as int16, the exact
-    fallback when the sparse stream overflows) and "recon" (deblocked
-    uint8 planes, the next frame's reference)."""
+    deblock ("deblock"), with `sao` the SAO estimate and filter ("sao")
+    and its transfer row ("compact_pack"). Returns "packed" (1, total)
+    uint8 and "lv_rest" (see _pack_run_streams), "dense_lv" (the
+    frame's luma, cb and cr levels as int16, the exact fallback when
+    the sparse stream overflows), "recon" (the filtered uint8 planes,
+    the next frame's reference) and with `sao` "sao", the (nch, ncw, 3,
+    6) int32 SAO parameters."""
     if idr:
         o = stage("intra_core", lambda: _i_frame_core(y, u, v, qp, qp_c))
     else:
@@ -1034,26 +1335,32 @@ def encode_frame_row(y, u, v, ref, idr: bool, qp: int, qp_c: int,
     recon = stage("deblock", lambda: deblock_frame_dev(
         *o["recon"], o["is_intra"], (o["luma_lv"] != 0).flatten(2).any(-1),
         o["mv"], qp))
+    if sao:
+        params, recon = stage("sao", lambda: sao_frame_dev((y, u, v), recon,
+                                                           qp))
     out = stage("compact_pack", lambda: _pack_frame(o, cap, chunk))
     out["recon"] = recon
+    if sao:
+        out["sao"] = params
     return out
 
 
-def encode_run_rows(planes, idr_flags, qps, qpcs, ref, caps,
-                    chunks) -> list[dict]:
+def encode_run_rows(planes, idr_flags, qps, qpcs, ref, caps, chunks,
+                    sao: bool = False) -> list[dict]:
     """Encode a run of frames on the device, in order, carrying the
-    deblocked reference from frame to frame.
+    filtered reference from frame to frame.
 
     planes(f) gives frame f's (y, u, v) device planes at the padded
     size; ref is the reference before the run (uint8 planes); per frame
     f: idr_flags[f], qps[f], qpcs[f] and the sparse-level capacity
-    caps[f] and chunk-0 size chunks[f] of its packed row. Returns
-    encode_frame_row's dict per frame. Port of the JAX encode_run_rows
-    and encode_idr_rows/_idr_tail."""
+    caps[f] and chunk-0 size chunks[f] of its packed row; `sao` runs
+    the SAO stage after each deblock. Returns encode_frame_row's dict
+    per frame. Port of the JAX encode_run_rows and
+    encode_idr_rows/_idr_tail."""
     outs = []
     for f, idr in enumerate(idr_flags):
         out = encode_frame_row(*planes(f), ref, bool(idr), int(qps[f]),
-                               int(qpcs[f]), caps[f], chunks[f])
+                               int(qpcs[f]), caps[f], chunks[f], sao=sao)
         ref = out["recon"]
         outs.append(out)
     return outs

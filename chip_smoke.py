@@ -12,11 +12,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    all started together;
 3. kernels: each kernel against its plain PyTorch version on the card,
    on random inputs, on edge cases (`merge_edge_cases`,
-   `deblock_edge_cases`, `intra16_edge_cases`) and on the real inputs of
-   a 1080p IDR and P frame, bit-equal; timed (torch.profiler device time
-   over 5 windows, and CUDA events) beside the plain version, one-call
-   PyTorch yardsticks where there are any (K1), the CUDA-graph replay of
-   the plain loop (K2, K3) and the memory bound;
+   `deblock_edge_cases`, `intra16_edge_cases`, `h265_intra_edge_cases`)
+   and on the real inputs of a 1080p IDR and P frame (K4: the 1080p IDR
+   and one 3840x2160 IDR of the device source), bit-equal; timed
+   (torch.profiler device time over 5 windows, and CUDA events) beside
+   the plain version, one-call PyTorch yardsticks where there are any
+   (K1), the CUDA-graph replay of the plain loop (K2-K4) and the bytes
+   and operations bound;
 4. main path: H264Encoder(1920, 1088, qp=28, gop=60, cabac=False) on
    DeviceTestPatternSource(1920, 1088, texture=6), 3 runs of 10 frames
    through encode_run_async; kernel launch counts are set to 0 just
@@ -30,9 +32,11 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    of 10 frames through encode_run_async; checks the GOP structure
    (1 IDR, then P), the NAL types (IDR_W_RADL, then TRAIL_R), the
    start codes and the recon shapes; kernel launch counts are set to 0
-   just before and read just after (the HEVC path runs no hand-written
-   kernel: K1 must stay at 0); prints frames/s, seconds per run, bytes
-   per IDR and mean P frame, fallback frames and peak device memory;
+   just before and read just after (K4 once per IDR, no other kernel);
+   one more P frame and one more IDR under torch.profiler, the IDR under
+   1,000 CUDA launches; prints frames/s, seconds per run, bytes per IDR
+   and mean P frame, fallback frames, peak device memory and those
+   launches and device ms;
 7. HEVC GPU equals CPU: 320x192 (6 frames, gop 4, two runs) and the
    first 1080p IDR + P frame, byte-identical;
 8. the product loop: CeracoderApp (python -m ceracoder_tpu_torch) on a
@@ -41,10 +45,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    2000 ms, realtime pacing, sending to a loopback SRT listener (UDP
    where libsrt does not load); 40 warm-up frames, then 120 timed.
    Checks every payload (1316 B of 188 B TS packets, sync bytes,
-   unbroken continuity counters), the keyframes (frames 0, 60, 120) and
-   that K1 is launched 0 times; prints emit-to-emit frames/s and the
-   host seconds in encode_run_async, PendingFrame.result() and mux +
-   pack + send, timed by wrapping those calls here, not in the app;
+   unbroken continuity counters), the keyframes (frames 0, 60, 120),
+   that K4 is launched once per keyframe and no other kernel at all, and
+   that the longest time the stall watchdog's position stood still is
+   at most its 1 s check (the watchdog itself stays off, as in
+   bench.py); prints emit-to-emit frames/s and the host seconds in
+   encode_run_async, PendingFrame.result() and mux + pack + send, timed
+   by wrapping those calls here, not in the app;
 9. app GPU equals CPU: one 320x192 job through CeracoderApp on cuda and
    on cpu gives identical TS bytes, for the host-source run loop (run =
    4), the per-frame loop (run = 1) and the device-source run loop, for
@@ -70,7 +77,13 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    launched 0 times and K2 and K3 once per frame, and that the longest
    time the watchdog's position stood still is at most the watchdog's
    1 s check (a live job would exit above it); prints emit-to-emit
-   frames/s, the host seconds as phase 8 and that time.
+   frames/s, the host seconds as phase 8 and that time;
+13. HEVC with SAO: bench.py's `CERACODER_BENCH_SAO=1` cell,
+   H265DeviceEncoder(1920, 1088, qp=30, gop=60, sao=True) on the device
+   test pattern, 3 runs of 10 frames; the checks of phase 6 (K4 once per
+   IDR, the IDR under 1,500 launches with SAO's), the share of CTBs
+   that take SAO
+   (above 0), then GPU == CPU as phase 7 with SAO on.
 
 The native libraries (native/src: the HEVC entropy stage, the H.264
 CABAC row coder, the balancer core and, where the libavcodec headers
@@ -104,6 +117,8 @@ KERNELS = {
                      "ceracoder_tpu/ops/deblock.py:213", "cuda"),
     "h264_intra16": ("h264_intra16_cols", "ceracoder_tpu/ops/intra.py:152",
                      "cuda"),
+    "h265_intra": ("h265_intra_cols", "ceracoder_tpu/ops/h265.py:1282",
+                   "cuda"),
 }
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM memory rate (NVIDIA data sheet)
@@ -537,6 +552,44 @@ def intra16_edge_cases(seed: int = 12) -> dict:
     return cases
 
 
+H265_INTRA_QPS = ((0, 0), (22, 22), (30, 29), (51, 39), (51, 51))
+H265_ANGLES = (32, 26, 21, 17, 13, 9, 5, 2)      # HEVC modes 2..9
+
+
+def h265_intra_patterns(w: int, h: int, seed: int = 13) -> dict:
+    """K4 input planes at w x h, name -> (y, u, v) uint8, made from
+    `seed`: flat 0, 128 and 255 (every candidate ties: planar wins),
+    uniform noise (the largest coefficients, levels on their clamps),
+    stripes along each angle of modes 2..9 (constant along y + x*a/32,
+    which the left-only angular candidate of that angle predicts) and
+    horizontal and vertical ramps."""
+    rng = np.random.default_rng(seed)
+
+    def planes(fn):
+        return tuple(fn(*np.mgrid[0:ph, 0:pw]).clip(0, 255).astype(np.uint8)
+                     for ph, pw in ((h, w), (h // 2, w // 2),
+                                    (h // 2, w // 2)))
+    pats = {f"flat_{k}": planes(lambda yy, xx, k=k: np.full(yy.shape, k))
+            for k in (0, 128, 255)}
+    pats["noise"] = planes(lambda yy, xx: rng.integers(0, 256, yy.shape))
+    for a in H265_ANGLES:
+        pats[f"stripes_a{a}"] = planes(
+            lambda yy, xx, a=a: 128 + 100 * np.sin(
+                2 * np.pi * (yy + xx * a / 32) / 7.3))
+    pats["ramp_horizontal"] = planes(lambda yy, xx: 20 + 2 * xx)
+    pats["ramp_vertical"] = planes(lambda yy, xx: 30 + 4 * yy)
+    return pats
+
+
+def h265_intra_edge_cases() -> dict:
+    """K4 edge cases as numpy arrays at EDGE_W x EDGE_H: name -> (y, u,
+    v, qp, qp_c), the arguments of h265_intra_cols; every pattern of
+    h265_intra_patterns at every qp / qp_c of H265_INTRA_QPS."""
+    return {f"{name}_qp{qp}_qpc{qp_c}": (*planes, qp, qp_c)
+            for name, planes in h265_intra_patterns(EDGE_W, EDGE_H).items()
+            for qp, qp_c in H265_INTRA_QPS}
+
+
 def _cuda(x):
     """numpy arrays (also inside tuples) as tensors on the card; other
     values as they are."""
@@ -579,14 +632,14 @@ def random_intra16_args(gen: np.random.Generator, w: int, h: int, qp: int,
 
 
 def _flat_outputs(out) -> list:
-    """Every tensor a K2 / K3 call returns, in one order."""
+    """Every tensor a K2-K4 call returns, in one order."""
     if isinstance(out, dict):
         return [*(out[k] for k in sorted(out) if k != "recon"),
                 *out["recon"]]
     return list(out)
 
 
-def h264_kernel_err(kernel, plain, args) -> int:
+def kernel_err(kernel, plain, args) -> int:
     """Largest difference between a kernel's and its plain version's
     outputs on `args` (shapes and dtypes must agree)."""
     got = _flat_outputs(kernel(*args))
@@ -680,16 +733,28 @@ def graph_replay_ms(fn, iters: int = 3) -> float:
 DEBLOCK_OPS_PER_MB = 60 * 16 * 7 + 30 * 8 * 3 * 2
 INTRA16_OPS_PER_MB = (3 * 2 * 384 + 384 + (64 + 96) * 24 + (6 + 2 + 3) * 384
                       + 400)
+# K4 per CTB: the 12 luma candidates (about 6 operations a sample) and
+# their differences (1); the 48 8x8 Hadamards (24 adds per 8-sample
+# vector, 16 vectors, and 128 for |.| and the sum); the 16x16 forward
+# and inverse transforms (two stages each way, 16 multiply-adds per
+# coefficient and stage); quant and dequant (10 per coefficient) and
+# the clamped reconstruction (3); chroma's candidate (6 a sample), its
+# residual (1), its 8x8 transform chain (8 multiply-adds per stage),
+# quant, dequant and reconstruction (13).
+H265_INTRA_OPS_PER_CTB = (12 * 256 * (6 + 1) + 48 * (16 * 24 + 128)
+                          + 4 * 2 * 16 * 256 + (10 + 3) * 256
+                          + 128 * (6 + 1 + 4 * 2 * 8 + 13))
 
 
-def h264_kernel_numbers(name: str, kernel, plain, args, ops: int) -> dict:
-    """Equality and timings of K2 or K3 on one input: the kernel's
+def kernel_numbers(name: str, kernel, plain, args, ops: int) -> dict:
+    """Equality and timings of a column-loop kernel (K2-K4) on one
+    input: the kernel's
     device time (torch.profiler, median of 5 windows), the plain loop's
     device time and launches (torch.profiler, one call after a warm-up)
     and its CUDA-event time per call, and the CUDA-graph replay of the
     plain loop (the yardstick, ROADMAP.md §2)."""
     iters = 20
-    out = {"max_abs_err": h264_kernel_err(kernel, plain, args)}
+    out = {"max_abs_err": kernel_err(kernel, plain, args)}
     dev = kernel_event_ms(lambda: kernel(*args), name.rsplit("_", 1)[0],
                           iters)
     out.update(ms=dev["ms"], spread=dev["spread"], lost=dev["lost_events"])
@@ -715,7 +780,7 @@ def h264_kernel_numbers(name: str, kernel, plain, args, ops: int) -> dict:
     return out
 
 
-def print_h264_kernel_numbers(tag: str, label: str, n: dict) -> None:
+def print_kernel_numbers(tag: str, label: str, n: dict) -> None:
     print(f"{tag} {label} {n['shape']}: max_abs_err={n['max_abs_err']}; "
           f"device ms per launch (profiler, median [min, max] of 5 "
           f"windows of 20 calls) {n['ms']:.6f} {n['spread']} (events not "
@@ -743,10 +808,10 @@ def phase_h264_kernels(tag: str) -> dict:
              "h264_intra16_cols": (h264_intra16_cols, _encode_mb_cols_ref)}
     errs = {name: [] for name in pairs}
     for name, case in deblock_edge_cases().items():
-        errs["h264_deblock_rows"].append(h264_kernel_err(
+        errs["h264_deblock_rows"].append(kernel_err(
             *pairs["h264_deblock_rows"], deblock_case_args(case)))
     for name, case in intra16_edge_cases().items():
-        errs["h264_intra16_cols"].append(h264_kernel_err(
+        errs["h264_intra16_cols"].append(kernel_err(
             *pairs["h264_intra16_cols"], _cuda(case)))
     print(f"{tag} K2 edge cases ({len(errs['h264_deblock_rows'])}, "
           f"{EDGE_W}x{EDGE_H}, bS 0-4, qp / qp_c {list(EDGE_QPS)}): "
@@ -759,11 +824,11 @@ def phase_h264_kernels(tag: str) -> dict:
         for qp, qp_c in ((0, 0), (51, 51), (28, 28)):
             a = random_deblock_args(gen, w, h, qp, qp_c)
             errs["h264_deblock_rows"].append(
-                h264_kernel_err(*pairs["h264_deblock_rows"], a))
+                kernel_err(*pairs["h264_deblock_rows"], a))
             for scan in (False, True):
                 a = random_intra16_args(gen, w, h, qp, qp_c, scan)
                 errs["h264_intra16_cols"].append(
-                    h264_kernel_err(*pairs["h264_intra16_cols"], a))
+                    kernel_err(*pairs["h264_intra16_cols"], a))
     print(f"{tag} K2 / K3 on random planes {EDGE_W}x{EDGE_H} and "
           f"1920x1088 (bS drawn from 0..4 everywhere; K3 with and without "
           f"a random mask), qp / qp_c 0, 51, 28: max_abs_err "
@@ -776,14 +841,14 @@ def phase_h264_kernels(tag: str) -> dict:
     for name, (kernel, plain) in pairs.items():
         numbers[name] = {}
         for kind, args in zip(("IDR", "P"), real[name]):
-            n = h264_kernel_numbers(name, kernel, plain, args, ops[name])
+            n = kernel_numbers(name, kernel, plain, args, ops[name])
             numbers[name][kind] = n
             errs[name].append(n["max_abs_err"])
             label = {"h264_deblock_rows": "K2 deblock",
                      "h264_intra16_cols": "K3 Intra_16x16 "
                      + ("IDR loop" if kind == "IDR" else "intra-in-P scan")
                      }[name]
-            print_h264_kernel_numbers(tag, f"{label}, 1080p {kind} frame",
+            print_kernel_numbers(tag, f"{label}, 1080p {kind} frame",
                                       n)
         numbers[name]["max_abs_err"] = max(errs[name])
         check(max(errs[name]) == 0, f"{name} differs from its plain version")
@@ -791,24 +856,88 @@ def phase_h264_kernels(tag: str) -> dict:
     return numbers
 
 
-def reset_launches() -> None:
-    """Set every kernel wrapper's launch count to 0."""
+def capture_h265_intra_inputs(width: int, height: int, texture: int):
+    """The arguments that H265DeviceEncoder(qp=30) hands K4 for frame 0
+    (the IDR) of the device source."""
+    import ceracoder_tpu_torch.ops.h265 as h265
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+
+    captured, real = [], h265.h265_intra_cols
+
+    def spy(*args):
+        captured.append(tuple(a.clone() if isinstance(a, torch.Tensor)
+                              else a for a in args))
+        return real(*args)
+    spy.launches = 0            # the wrapper counts on its module's name
+    h265.h265_intra_cols = spy
+    try:
+        src = DeviceTestPatternSource(width, height, texture=texture)
+        enc = H265DeviceEncoder(width, height, qp=30, gop=60)
+        enc.encode_run_async(source=src, indices=range(1))[0].result()
+    finally:
+        h265.h265_intra_cols = real
+    check(len(captured) == 1, f"captured {len(captured)} K4 calls, want 1")
+    return captured[0]
+
+
+def phase_h265_kernels(tag: str) -> dict:
+    """K4 against its plain version: the edge cases, random planes at
+    112x48 and 1080p at random QPs, the real 1080p IDR and one 4K IDR of
+    the device source (equal element for element), then timed on the
+    real 1080p and 4K inputs."""
+    from ceracoder_tpu_torch.ops.h265 import _i_frame_cols_ref, h265_intra_cols
+
+    pair = (h265_intra_cols, _i_frame_cols_ref)
+    errs = [kernel_err(*pair, _cuda(case))
+            for case in h265_intra_edge_cases().values()]
+    print(f"{tag} K4 edge cases ({len(errs)}, {EDGE_W}x{EDGE_H}: flat, "
+          f"noise, stripes at the 8 angles, ramps; qp / qp_c "
+          f"{list(H265_INTRA_QPS)}): max_abs_err={max(errs)}")
+    gen = np.random.default_rng(2028)
+    for w, h in ((EDGE_W, EDGE_H), (1920, 1088)):
+        for smooth in (False, True):
+            qp, qp_c = (int(q) for q in gen.integers(0, 52, 2))
+            errs.append(kernel_err(*pair, (*_cuda(edge_planes(gen, w, h,
+                                                              smooth)),
+                                           qp, qp_c)))
+    print(f"{tag} K4 on random planes {EDGE_W}x{EDGE_H} and 1920x1088 "
+          f"(noise and smooth, random qp / qp_c): max_abs_err "
+          f"{max(errs[-4:])}")
+    numbers = {}
+    for kind, (w, h) in (("1080p", (1920, 1088)), ("4K", (3840, 2160))):
+        n = kernel_numbers("h265_intra_cols", *pair,
+                           capture_h265_intra_inputs(w, h, 6),
+                           H265_INTRA_OPS_PER_CTB)
+        numbers[kind] = n
+        errs.append(n["max_abs_err"])
+        print_kernel_numbers(tag, f"K4 HEVC intra loop, {kind} IDR of the "
+                             "device source", n)
+    numbers["max_abs_err"] = max(errs)
+    check(max(errs) == 0, "h265_intra_cols differs from its plain version")
+    h265_intra_cols.launches = 0
+    return numbers
+
+
+def _kernel_wrappers() -> tuple:
     from ceracoder_tpu_torch.ops.bitpack import merge_windows
     from ceracoder_tpu_torch.ops.deblock import h264_deblock_rows
+    from ceracoder_tpu_torch.ops.h265 import h265_intra_cols
     from ceracoder_tpu_torch.ops.intra import h264_intra16_cols
 
-    for fn in (merge_windows, h264_deblock_rows, h264_intra16_cols):
+    return (merge_windows, h264_deblock_rows, h264_intra16_cols,
+            h265_intra_cols)
+
+
+def reset_launches() -> None:
+    """Set every kernel wrapper's launch count to 0."""
+    for fn in _kernel_wrappers():
         fn.launches = 0
 
 
 def read_launches() -> dict:
     """Every kernel wrapper's launch count, by wrapper name."""
-    from ceracoder_tpu_torch.ops.bitpack import merge_windows
-    from ceracoder_tpu_torch.ops.deblock import h264_deblock_rows
-    from ceracoder_tpu_torch.ops.intra import h264_intra16_cols
-
-    return {fn.__name__: fn.launches
-            for fn in (merge_windows, h264_deblock_rows, h264_intra16_cols)}
+    return {fn.__name__: fn.launches for fn in _kernel_wrappers()}
 
 
 # ---------------------------------------------------------------------------
@@ -969,8 +1098,9 @@ def phase_hevc_main_path(tag: str) -> dict:
           and rec[2].shape == (h // 2, w // 2), "recon shapes")
     check(all(f._recon_dev[0].device.type == "cuda" for f in frames),
           "recon not on the card")
-    check(not any(launches.values()),
-          f"hand kernels launched on the HEVC path: {launches}")
+    check_hevc_launches(launches, 1)
+    peak = torch.cuda.max_memory_allocated()
+    frame_launches = hevc_frame_launches(enc, src, nf)
     sizes = [len(f.data) for f in frames]
     out = {
         "frames": nf, "seconds": secs, "fps": nf / secs,
@@ -978,7 +1108,7 @@ def phase_hevc_main_path(tag: str) -> dict:
         "run_seconds": run_secs,
         "bytes_idr": sizes[0], "bytes_p_mean": sum(sizes[1:]) / (nf - 1),
         "fallback_frames": enc.fallback_frames, "launches": launches,
-        "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+        **frame_launches, "peak_mem_bytes": peak,
         "first_two": b"".join(f.data for f in frames[:2]),
     }
     print(f"{tag} HEVC main path 1080p: {nf} frames in {secs:.3f} s "
@@ -988,17 +1118,50 @@ def phase_hevc_main_path(tag: str) -> dict:
     print(f"{tag} HEVC main path bytes/frame: IDR {out['bytes_idr']}, P "
           f"mean {out['bytes_p_mean']:.1f}; fallback frames "
           f"{out['fallback_frames']}; hand-kernel launches {launches}; "
-          f"peak device memory {out['peak_mem_bytes']} B")
+          f"peak device memory {peak} B; {describe_frame_launches(out)}")
     return out
 
 
+def check_hevc_launches(launches: dict, idrs: int) -> None:
+    """An HEVC run launches K4 once per IDR and no other hand kernel."""
+    want = {name: idrs if name == "h265_intra_cols" else 0
+            for name in launches}
+    check(launches == want, f"hand-kernel launches {launches} on the HEVC "
+          f"path, want {want}")
+
+
+def hevc_frame_launches(enc, src, n: int, idr_limit: int = 1000) -> dict:
+    """CUDA launches and device ms of one more P frame and one more IDR
+    of `enc` (frames n, n + 1 of `src`; torch.profiler). Checks that the
+    IDR stays under `idr_limit` launches (its column loop is K4: the
+    plain loop alone launches about 33,000 at 1080p)."""
+    p_launches, p_ms = kernel_launches(
+        lambda: enc.encode_run_async(source=src, indices=[n])[0].result())
+    idr_launches, idr_ms = kernel_launches(
+        lambda: enc.encode_run_async(source=src, indices=[n + 1],
+                                     force_idr=True)[0].result())
+    check(idr_launches < idr_limit,
+          f"{idr_launches} CUDA launches for an HEVC IDR: the column loop "
+          "is not in K4")
+    return {"launches_per_p_frame": p_launches,
+            "device_ms_per_p_frame": p_ms,
+            "launches_per_idr": idr_launches, "device_ms_per_idr": idr_ms}
+
+
+def describe_frame_launches(out: dict) -> str:
+    return (f"one more P frame: {out['launches_per_p_frame']} CUDA "
+            f"launches, {out['device_ms_per_p_frame']:.3f} device ms; one "
+            f"more IDR: {out['launches_per_idr']} CUDA launches, "
+            f"{out['device_ms_per_idr']:.3f} device ms")
+
+
 def encode_hevc_stream(device: str, w: int, h: int, runs, gop: int,
-                       qp: int, texture: int) -> bytes:
+                       qp: int, texture: int, sao: bool = False) -> bytes:
     from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
     from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
 
     src = DeviceTestPatternSource(w, h, texture=texture, device=device)
-    enc = H265DeviceEncoder(w, h, qp=qp, gop=gop, device=device)
+    enc = H265DeviceEncoder(w, h, qp=qp, gop=gop, device=device, sao=sao)
     data = enc.headers()
     for idx in runs:
         data += b"".join(p.result().data
@@ -1007,24 +1170,115 @@ def encode_hevc_stream(device: str, w: int, h: int, runs, gop: int,
     return data
 
 
-def phase_hevc_gpu_equals_cpu(tag: str, main: dict) -> None:
+def phase_hevc_gpu_equals_cpu(tag: str, main: dict,
+                              sao: bool = False) -> None:
+    label = "HEVC with SAO" if sao else "HEVC"
     runs = [range(0, 3), range(3, 6)]
     t = time.perf_counter()
-    gpu = encode_hevc_stream("cuda", 320, 192, runs, 4, 30, 6)
-    cpu = encode_hevc_stream("cpu", 320, 192, runs, 4, 30, 6)
-    check(gpu == cpu, "HEVC 320x192 GPU and CPU streams differ")
-    print(f"{tag} HEVC GPU == CPU at 320x192, 6 frames, gop 4, 2 runs: "
+    gpu = encode_hevc_stream("cuda", 320, 192, runs, 4, 30, 6, sao)
+    cpu = encode_hevc_stream("cpu", 320, 192, runs, 4, 30, 6, sao)
+    check(gpu == cpu, f"{label} 320x192 GPU and CPU streams differ")
+    print(f"{tag} {label} GPU == CPU at 320x192, 6 frames, gop 4, 2 runs: "
           f"{len(gpu)} B identical ({time.perf_counter() - t:.2f} s)")
     t = time.perf_counter()
-    cpu2 = encode_hevc_stream("cpu", 1920, 1088, [range(2)], 60, 30, 6)
+    cpu2 = encode_hevc_stream("cpu", 1920, 1088, [range(2)], 60, 30, 6, sao)
     from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
-    hdr = H265DeviceEncoder(1920, 1088, qp=30, gop=60,
-                            device="cpu").headers()
+    hdr = H265DeviceEncoder(1920, 1088, qp=30, gop=60, device="cpu",
+                            sao=sao).headers()
     check(cpu2 == hdr + main["first_two"],
-          "HEVC 1080p IDR + P frame: GPU and CPU bytes differ")
-    print(f"{tag} HEVC GPU == CPU at 1920x1088, first IDR + P frame: "
+          f"{label} 1080p IDR + P frame: GPU and CPU bytes differ")
+    print(f"{tag} {label} GPU == CPU at 1920x1088, first IDR + P frame: "
           f"{len(main['first_two'])} B identical (CPU run "
           f"{time.perf_counter() - t:.2f} s)")
+
+
+class SaoCount:
+    """The SAO types of each frame that H265DeviceEncoder codes, by
+    wrapping the entropy stage's call in codec/h265/device.py."""
+
+    def __init__(self):
+        import ceracoder_tpu_torch.codec.h265.device as device
+
+        self.mod, self.real = device, device.entropy_rows_native
+        self.types = []
+
+        def entropy(p, arrays, *a, **kw):
+            self.types.append(arrays["sao"][:, :, :, 0].copy())
+            return self.real(p, arrays, *a, **kw)
+        device.entropy_rows_native = entropy
+
+    def close(self):
+        self.mod.entropy_rows_native = self.real
+
+
+def phase_hevc_sao(tag: str) -> dict:
+    """bench.py's SAO cell: H265DeviceEncoder(1920, 1088, qp=30, gop=60,
+    sao=True) on the device test pattern, 3 runs of 10 frames."""
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+
+    w, h, runs, run_len = 1920, 1088, 3, 10
+    src = DeviceTestPatternSource(w, h, texture=6)
+    enc = H265DeviceEncoder(w, h, qp=30, gop=60, sao=True)
+    count = SaoCount()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    frames, run_secs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(runs):
+            t = time.perf_counter()
+            pend = enc.encode_run_async(
+                source=src, indices=range(r * run_len, (r + 1) * run_len))
+            frames += [p.result() for p in pend]
+            torch.cuda.synchronize()
+            run_secs.append(time.perf_counter() - t)
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+        types = np.stack(count.types)                 # (frames, nch, ncw, 3)
+    finally:
+        count.close()
+    nf = runs * run_len
+    check(len(frames) == nf and len(types) == nf, "frame count")
+    check([f.keyframe for f in frames] == [True] + [False] * (nf - 1),
+          "GOP structure (1 IDR + P frames)")
+    for f in frames:
+        check_hevc_frame(f.data, f.keyframe)
+    rec = frames[-1].recon
+    check(rec[0].shape == (h, w) and rec[2].shape == (h // 2, w // 2),
+          "recon shapes")
+    check_hevc_launches(launches, 1)
+    on = {"luma": int((types[..., 0] != 0).sum()),
+          "luma_band": int((types[..., 0] == 1).sum()),
+          "luma_edge": int((types[..., 0] == 2).sum()),
+          "chroma": int((types[..., 1] != 0).sum()), "of": types[..., 0].size}
+    check(on["luma"] + on["chroma"] > 0,
+          "SAO taken on no CTB of the 1080p run")
+    # SAO's plain-torch stage adds about 400 launches to each frame
+    frame_launches = hevc_frame_launches(enc, src, nf, idr_limit=1500)
+    sizes = [len(f.data) for f in frames]
+    out = {
+        "frames": nf, "seconds": secs, "fps": nf / secs,
+        "fps_runs_2_3": 2 * run_len / sum(run_secs[1:]),
+        "run_seconds": run_secs,
+        "bytes_idr": sizes[0], "bytes_p_mean": sum(sizes[1:]) / (nf - 1),
+        "sao_ctbs_on": on, "fallback_frames": enc.fallback_frames,
+        "launches": launches, **frame_launches, "peak_mem_bytes": peak,
+        "first_two": b"".join(f.data for f in frames[:2]),
+    }
+    print(f"{tag} HEVC with SAO 1080p: {nf} frames in {secs:.3f} s = "
+          f"{out['fps']:.3f} frames/s (runs 2-3: {out['fps_runs_2_3']:.3f} "
+          f"frames/s; per run {', '.join(f'{s:.3f}' for s in run_secs)} s)")
+    print(f"{tag} HEVC with SAO bytes/frame: IDR {out['bytes_idr']}, P mean "
+          f"{out['bytes_p_mean']:.1f}; CTBs with SAO on, of {on['of']} in "
+          f"{nf} frames: luma {on['luma']} (band {on['luma_band']}, edge "
+          f"{on['luma_edge']}), chroma {on['chroma']}; "
+          f"fallback frames {out['fallback_frames']}; hand-kernel launches "
+          f"{launches}; peak device memory {peak} B; "
+          f"{describe_frame_launches(out)}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1362,12 +1616,13 @@ class Timed:
 
 
 def run_app_loop(job, warm: int, timed_frames: int, want_keys: list,
-                 kernels: tuple = ()):
+                 kernels: dict):
     """CeracoderApp on `job`, fixed balancer, latency 2000 ms, realtime,
     to a loopback listener, the stall watchdog off; `warm` frames, then
-    `timed_frames` timed emit to emit. Checks that the hand kernels
-    named in `kernels` were launched once per frame at least and the
-    others not at all; returns the numbers phases 8 and 12 print."""
+    `timed_frames` timed emit to emit. Checks that each hand kernel
+    named in `kernels` was launched as it says (wrapper name -> "frame":
+    once per frame at least, "idr": once per keyframe) and the others
+    not at all; returns the numbers phases 8 and 12 print."""
     from ceracoder_tpu_torch.app.cli import CliOptions
     from ceracoder_tpu_torch.app.main import CeracoderApp
 
@@ -1432,9 +1687,11 @@ def run_app_loop(job, warm: int, timed_frames: int, want_keys: list,
           f"keyframes at {[i for i, k in enumerate(keys) if k]}, want "
           f"{want_keys}")
     for name, n in launches.items():
-        check(n >= total if name in kernels else n == 0,
-              f"{name} launched {n} times in {total} frames of the app "
-              "loop")
+        per = kernels.get(name)
+        ok = {"frame": n >= total, "idr": n == len(want_keys),
+              None: n == 0}[per]
+        check(ok, f"{name} launched {n} times in {total} frames of the app "
+              f"loop ({per or 'never'} wanted)")
     check(listener.nbytes > 0 or listener.kind == "srt",
           "the UDP listener received nothing")
     check(listener.sizes <= {1316}, f"received sizes {listener.sizes}")
@@ -1477,7 +1734,10 @@ def phase_app_loop(tag: str, tmpdir) -> dict:
                    f"height = {APP_H}\nfps = {APP_FPS}\n\n[encode]\n"
                    f"codec = hevc\ngop = {APP_GOP}\nrun = {APP_RUN}\n\n"
                    "[audio]\nkind = tone\nbitrate = 128\n")
-    out = run_app_loop(job, APP_WARM, APP_TIMED, [0, 60, 120])
+    from ceracoder_tpu_torch.app.main import STALL_CHECK_S
+
+    out = run_app_loop(job, APP_WARM, APP_TIMED, [0, 60, 120],
+                       {"h265_intra_cols": "idr"})
     out["job"] = {"kind": "devtest", "width": APP_W, "height": APP_H,
                   "fps": APP_FPS, "codec": "hevc", "gop": APP_GOP,
                   "run": APP_RUN, "audio": "tone 128 kbps",
@@ -1485,6 +1745,9 @@ def phase_app_loop(tag: str, tmpdir) -> dict:
                   "realtime": True}
     print_app_loop(tag, f"app loop {APP_W}x{APP_H} at {APP_FPS} frames/s, "
                    "HEVC (keyframes 0, 60, 120)", out)
+    check(out["longest_watchdog_gap_s"] <= STALL_CHECK_S,
+          f"the stall watchdog's position stood still "
+          f"{out['longest_watchdog_gap_s']:.3f} s: a live job would exit")
     return out
 
 
@@ -1496,7 +1759,8 @@ def phase_h264_app_loop(tag: str) -> dict:
     from ceracoder_tpu_torch.app.main import STALL_CHECK_S
 
     out = run_app_loop(H264_APP_JOB, H264_APP_WARM, H264_APP_TIMED, [0, 60, 120],
-                       ("h264_deblock_rows", "h264_intra16_cols"))
+                       {"h264_deblock_rows": "frame",
+                        "h264_intra16_cols": "frame"})
     out["job"] = {"file": "jobs/h264_test_1080p30",
                   "text": H264_APP_JOB.read_text(), "run": 8,
                   "balancer": "fixed", "latency_ms": 2000,
@@ -1555,6 +1819,7 @@ def main() -> int:
     build_kernels(tag)
     k1 = phase_kernels(tag)
     h264k = phase_h264_kernels(tag)
+    h265k = phase_h265_kernels(tag)
     main_out = phase_main_path(tag)
     phase_gpu_equals_cpu(tag, main_out)
     hevc = phase_hevc_main_path(tag)
@@ -1571,13 +1836,18 @@ def main() -> int:
         k: v for k, v in cabac.items() if k != "first_two"}}))
     h264_app = phase_h264_app_loop(tag)
     print(json.dumps({"h264_app_loop": h264_app}))
+    sao = phase_hevc_sao(tag)
+    phase_hevc_gpu_equals_cpu(tag, sao, sao=True)
+    print(json.dumps({"hevc_sao_path": {
+        k: v for k, v in sao.items() if k != "first_two"}}))
 
     def launches(name):
         return {"launches_cavlc_path": main_out["launches"][name],
                 "launches_hevc_path": hevc["launches"][name],
                 "launches_app_loop": app["launches"][name],
                 "launches_cabac_path": cabac["launches"][name],
-                "launches_h264_app_loop": h264_app["launches"][name]}
+                "launches_h264_app_loop": h264_app["launches"][name],
+                "launches_hevc_sao_path": sao["launches"][name]}
     p = k1["P"]
     kernels = [{
         "name": "merge_windows", "route": KERNELS["merge_windows"][2],
@@ -1613,6 +1883,24 @@ def main() -> int:
             "bound_ms_idr": idr["bound_ms"],
             "design": "one-cta-per-mb-row", **launches(name),
         })
+    # K4 runs on every HEVC IDR: the HEVC path (bench.py's default), the
+    # HEVC app loop and the SAO path
+    name, replaces, route = KERNELS["h265_intra"]
+    n, n4k = h265k["1080p"], h265k["4K"]
+    kernels.append({
+        "name": name, "route": route,
+        "source": "ceracoder_tpu_torch/csrc/h265_intra.cu",
+        "replaces": replaces, "launches": hevc["launches"][name],
+        "max_abs_err": h265k["max_abs_err"],
+        "ms": n["ms"], "ms_spread": n["spread"], "plain_ms": n["plain_ms"],
+        "bound_ms": n["bound_ms"], "bound_by": n["bound_by"],
+        "bound_share": n["bound_share"], "library_ms": None,
+        "graph_replay_ms": n["graph_ms"],
+        "plain_launches": n["plain_launches"],
+        "ms_4k": n4k["ms"], "plain_ms_4k": n4k["plain_ms"],
+        "graph_replay_ms_4k": n4k["graph_ms"], "bound_ms_4k": n4k["bound_ms"],
+        "design": "one-cta-per-ctb-row", **launches(name),
+    })
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

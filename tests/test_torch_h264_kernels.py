@@ -237,13 +237,13 @@ def test_cuda_kernels_match_plain_versions(kind):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "False); chip_smoke.py runs these cases on the card")
-    from chip_smoke import _cuda, deblock_case_args, h264_kernel_err
+    from chip_smoke import _cuda, deblock_case_args, kernel_err
 
     if kind == "deblock":
         for case in DEBLOCK_CASES.values():
-            assert h264_kernel_err(h264_deblock_rows, deblock_frame_rows_ref,
+            assert kernel_err(h264_deblock_rows, deblock_frame_rows_ref,
                                    deblock_case_args(case)) == 0
     else:
         for case in INTRA16_CASES.values():
-            assert h264_kernel_err(h264_intra16_cols, _encode_mb_cols_ref,
+            assert kernel_err(h264_intra16_cols, _encode_mb_cols_ref,
                                    _cuda(case)) == 0

@@ -85,9 +85,10 @@ def test_hevc_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         H265DeviceEncoder(64, 48)
     assert H265DeviceEncoder(64, 48, device="cpu").device.type == "cpu"
+    assert H265DeviceEncoder(64, 48, device="cpu", sao=True).params.sao
     # the JAX encoder's options that are later slices of the port are
     # not accepted, so no caller can believe it got them
-    for kw in ({"sao": True}, {"tu_split": True}, {"bframes": 1},
+    for kw in ({"tu_split": True}, {"bframes": 1},
                {"native_entropy": False}, {"deblock": False},
                {"tile_rows": False}):
         with pytest.raises(TypeError, match="unexpected keyword"):
