@@ -9,10 +9,11 @@ AFTER that MB's own horizontal edges; the carry hands those columns
 forward and the finalized values are written back into the left MB).
 
 That loop is `deblock_frame_rows_ref`, the plain version of K2
-(csrc/h264_deblock.cu: one CTA per MB row with the columns looped
-inside and the carry in shared memory). `h264_deblock_rows` launches K2
-on a CUDA tensor and runs the loop on a CPU tensor; `compute_bs` stays
-in torch.
+(csrc/h264_deblock.cu: one CTA per MB row, a luma warp and a chroma warp
+each running the columns' chain on registers and shared memory, with the
+row staged into a ring of shared-memory chunks by asynchronous copies
+ahead of the chain). `h264_deblock_rows` launches K2 on a CUDA tensor
+and runs the loop on a CPU tensor; `compute_bs` stays in torch.
 """
 
 from __future__ import annotations
@@ -308,8 +309,9 @@ def h264_deblock_rows(y, u, v, bs_v, bs_h, qp: int, qp_c: int):
     """The deblocking filter of a frame for given bS (K2).
 
     On a CUDA tensor this launches the kernel of csrc/h264_deblock.cu
-    (one CTA per MB row, the MB columns in a loop) on the current
-    stream, or raises; on a CPU tensor it runs `deblock_frame_rows_ref`.
+    (one CTA per MB row, the MB columns in a loop; its shared memory,
+    about 25 KB, does not grow with the width) on the current stream,
+    or raises; on a CPU tensor it runs `deblock_frame_rows_ref`.
     `h264_deblock_rows.launches` counts kernel launches."""
     qp, qp_c = int(qp), int(qp_c)
     _check_deblock(y, u, v, bs_v, bs_h, qp, qp_c)

@@ -7,11 +7,14 @@ Python loop carrying each row's right-edge reconstruction (the JAX
 `lax.scan`). Prediction modes per spec 8.3.3 / 8.3.4, restricted to the
 left-neighbor modes available in slice-row scanning: Horizontal and DC.
 
-That loop is `_encode_mb_cols_ref`, the plain version of K3
-(csrc/h264_intra16.cu: one CTA per MB row with the columns looped inside
-and the left columns in shared memory), which also serves the
-intra-in-P scan of ops/inter.py. `h264_intra16_cols` launches K3 on a
-CUDA tensor and runs the loop on a CPU tensor.
+That loop is `_encode_mb_cols_ref`, the plain version of K3, which also
+serves the intra-in-P scan of ops/inter.py. K3 (csrc/h264_intra16.cu) is
+two kernels: a carry pass, one CTA per MB row, that runs the serial
+column chain and keeps only what the next MB needs (the modes, the DC
+paths, the right-hand 4x4 blocks), storing each MB's left column in a
+scratch buffer; then a code pass, one CTA per MB, that codes every MB
+from its stored left column. `h264_intra16_cols` launches both on a CUDA
+tensor and runs the loop on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -212,16 +215,25 @@ def _check_intra16(y, u, v, qp: int, qp_c: int, is_intra, inter_recon):
     check_kernel_args("h264_intra16_cols", args, (qp, qp_c))
 
 
+# bytes per MB of the carry pass's scratch: the left column of 16 luma
+# and 8 + 8 chroma samples that the MB was coded with
+_SCRATCH = 32
+
+
 @functools.lru_cache(maxsize=None)
-def _launcher():
-    """K3's C entry point (built and loaded at first use)."""
+def _launchers():
+    """K3's two C entry points, the carry pass and the code pass (built
+    and loaded at first use)."""
     from ceracoder_tpu_torch.utils.cuda_build import load_library
 
-    fn = load_library("h264_intra16").h264_intra16_launch
-    fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 4 + [
+    lib = load_library("h264_intra16")
+    carry, code = lib.h264_intra16_carry_launch, lib.h264_intra16_code_launch
+    carry.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    code.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    carry.restype = code.restype = ctypes.c_int
+    return carry, code
 
 
 def h264_intra16_cols(y, u, v, qp: int, qp_c: int, is_intra=None,
@@ -229,10 +241,13 @@ def h264_intra16_cols(y, u, v, qp: int, qp_c: int, is_intra=None,
     """Intra_16x16 coding of every MB of a frame, column after column
     (K3); arguments and result as `_encode_mb_cols_ref`.
 
-    On a CUDA tensor this launches the kernel of csrc/h264_intra16.cu
-    (one CTA per MB row, the MB columns in a loop) on the current
-    stream, or raises; on a CPU tensor it runs `_encode_mb_cols_ref`.
-    `h264_intra16_cols.launches` counts kernel launches."""
+    On a CUDA tensor this launches the two kernels of
+    csrc/h264_intra16.cu on the current stream, or raises: the carry
+    pass (one CTA per MB row, the MB columns in a loop), which writes
+    the modes and each MB's left column to a scratch buffer, then the
+    code pass (one CTA per MB). On a CPU tensor it runs
+    `_encode_mb_cols_ref`. `h264_intra16_cols.launches` counts calls
+    that launched K3, one per frame; each launches both kernels."""
     qp, qp_c = int(qp), int(qp_c)
     _check_intra16(y, u, v, qp, qp_c, is_intra, inter_recon)
     if y.device.type == "cpu":
@@ -249,18 +264,27 @@ def h264_intra16_cols(y, u, v, qp: int, qp_c: int, is_intra=None,
                 mode_chroma=empty(dtype=torch.uint8),
                 recon=(torch.empty_like(y), torch.empty_like(u),
                        torch.empty_like(v)))
+    scratch = empty(_SCRATCH, dtype=torch.uint8)   # not an output
     scan = [None] * 4 if is_intra is None else [
         is_intra.data_ptr(), *(p.data_ptr() for p in inter_recon)]
-    launch = _launcher()
+    planes = (y.data_ptr(), u.data_ptr(), v.data_ptr())
+    carry, code = _launchers()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = launch(y.data_ptr(), u.data_ptr(), v.data_ptr(), *scan,
-                     *(outs[k].data_ptr() for k in _OUT_DTYPES),
-                     *(p.data_ptr() for p in outs["recon"]), mbh, mbw, qp,
-                     qp_c, stream)
-    if err != 0:
-        raise RuntimeError(f"h264_intra16_cols kernel launch failed: CUDA "
-                           f"error {err}")
+        err = carry(*planes, *scan, scratch.data_ptr(),
+                    outs["mode_luma"].data_ptr(),
+                    outs["mode_chroma"].data_ptr(), mbh, mbw, qp, qp_c,
+                    stream)
+        if err != 0:
+            raise RuntimeError(f"h264_intra16_cols carry kernel launch "
+                               f"failed: CUDA error {err}")
+        err = code(*planes, scratch.data_ptr(),
+                   *(outs[k].data_ptr() for k in _OUT_DTYPES),
+                   *(p.data_ptr() for p in outs["recon"]), mbh, mbw, qp,
+                   qp_c, stream)
+        if err != 0:
+            raise RuntimeError(f"h264_intra16_cols code kernel launch "
+                               f"failed: CUDA error {err}")
     h264_intra16_cols.launches += 1
     return outs
 

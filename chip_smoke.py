@@ -14,8 +14,10 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    on random inputs, on edge cases (`merge_edge_cases`,
    `deblock_edge_cases`, `intra16_edge_cases`, `h265_intra_edge_cases`)
    and on the real inputs of a 1080p IDR and P frame (K4: the 1080p IDR
-   and one 3840x2160 IDR of the device source), bit-equal; timed
-   (torch.profiler device time over 5 windows, and CUDA events) beside
+   and one 3840x2160 IDR of the device source; K2 and K3 also on random
+   planes of an odd number of MB columns, ODD_W x ODD_H), bit-equal;
+   timed (torch.profiler device time per call over 5 windows: K3's call
+   is two kernels, each one's mean event summed; and CUDA events) beside
    the plain version, one-call PyTorch yardsticks where there are any
    (K1), the CUDA-graph replay of the plain loop (K2-K4) and the bytes
    and operations bound;
@@ -92,6 +94,13 @@ are, the audio shim; g++) are built in phase 2 beside the kernels.
 The last lines are the nvidia-smi line, a JSON line of kernel numbers
 and the result line {"ok": true, "device": {...}}. It prints no result
 and exits non-zero without CUDA or without the repository beside it.
+
+    python3 chip_smoke.py --compare-h264 DIR
+
+runs only phase 3's K2 and K3 part, phase 10 and phase 12, of the tree
+in DIR (e.g. the parent commit from `git archive`, unpacked under
+build/) and of this one, in turns DIR, this, this, DIR, each in its own
+process on the same card.
 """
 
 from __future__ import annotations
@@ -203,35 +212,63 @@ def device_ms(fn, iters: int, windows: int = 5, warmup: int = 5,
             "lost_events": sum(want - n for n, _ in kept)}
 
 
-def kernel_event_ms(fn, kernel: str, iters: int) -> dict:
-    """Device milliseconds per launch of the one kernel that fn()
-    launches (its name contains `kernel`): the mean duration of the
-    kernel events torch.profiler records in a window of `iters` calls,
-    median of 5 windows after 3 warm-up calls. For kernels that run for
-    a few tenths of a millisecond the profiler records fewer events than
-    launches (F6); the mean of those it records does not depend on how
-    many it lost, which are counted (`lost_events`). The check fails if
-    a window records none, or any kernel other than `kernel`."""
+def kernel_event_ms(fn, kernel: str, iters: int, kernels: int = 1,
+                    windows: int = 5, max_windows: int = 10) -> dict:
+    """Device milliseconds per call of fn(), which launches `kernels`
+    different kernels once each (their names contain `kernel`): the mean
+    duration of each kernel's events that torch.profiler records in a
+    window of `iters` calls, summed over the kernels; median of
+    `windows` windows after 3 warm-up calls. For kernels that run for a
+    few tenths of a millisecond the profiler records fewer events than
+    launches (F6); a kernel's mean over the events it records does not
+    depend on how many it lost, which are counted (`lost_events`), while
+    a sum over all events divided by their count would weight the
+    kernels by what was lost. A window that lost every event of one
+    kernel is set aside (`dropped_windows`) and another is taken. The
+    check fails on any kernel whose name lacks `kernel`, on more than
+    `kernels` kernels, or unless `windows` windows are kept within
+    `max_windows`. `per_kernel` has each kernel's median ms, keyed by
+    the part of its name after `kernel`."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    per, lost = [], 0
-    for _ in range(5):
+    per, lost, dropped, by_kernel = [], 0, 0, {}
+    for _ in range(max_windows):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        check(len(events) > 0 and all(kernel in e.name for e in events),
+        check(all(kernel in e.name for e in events),
               f"window of {iters} calls recorded {[e.name for e in events]}")
-        per.append(sum(e.time_range.elapsed_us() for e in events)
-                   / len(events) / 1e3)
-        lost += iters - len(events)
+        by_name: dict[str, list[float]] = {}
+        for e in events:
+            by_name.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        check(len(by_name) <= kernels,
+              f"window of {iters} calls recorded kernels {sorted(by_name)}, "
+              f"want {kernels}")
+        if len(by_name) < kernels:
+            dropped += 1
+            continue
+        means = {name: statistics.fmean(us) / 1e3
+                 for name, us in by_name.items()}
+        per.append(sum(means.values()))
+        for name, ms in means.items():
+            short = name.split(kernel, 1)[1].split("(", 1)[0]
+            by_kernel.setdefault(short, []).append(ms)
+        lost += kernels * iters - len(events)
+        if len(per) == windows:
+            break
+    check(len(per) == windows,
+          f"{len(per)} of {max_windows} windows of {iters} calls recorded "
+          f"every one of the {kernels} kernel(s), want {windows}")
     return {"ms": statistics.median(per), "spread": [min(per), max(per)],
-            "lost_events": lost}
+            "lost_events": lost, "dropped_windows": dropped,
+            "per_kernel": {k: statistics.median(v)
+                           for k, v in by_kernel.items()}}
 
 
 def build_kernels(tag: str) -> None:
@@ -481,6 +518,9 @@ def phase_kernels(tag: str) -> dict:
 # ---------------------------------------------------------------------------
 
 EDGE_W, EDGE_H = 112, 48    # 7 MB columns: one unrolled step in JAX's scans
+# an odd number of MB columns (53): chroma rows only 8-byte aligned, and
+# a ragged last chunk of K2's and K3's row rings
+ODD_W, ODD_H = 848, 480
 EDGE_QPS = ((0, 0), (17, 17), (28, 28), (51, 51), (51, 17), (0, 28))
 
 
@@ -746,18 +786,26 @@ H265_INTRA_OPS_PER_CTB = (12 * 256 * (6 + 1) + 48 * (16 * 24 + 128)
                           + 128 * (6 + 1 + 4 * 2 * 8 + 13))
 
 
+# kernels that one call of a wrapper launches (K3: its carry pass and
+# its code pass), where not 1
+KERNELS_PER_CALL = {"h264_intra16_cols": 2}
+
+
 def kernel_numbers(name: str, kernel, plain, args, ops: int) -> dict:
     """Equality and timings of a column-loop kernel (K2-K4) on one
-    input: the kernel's
-    device time (torch.profiler, median of 5 windows), the plain loop's
-    device time and launches (torch.profiler, one call after a warm-up)
-    and its CUDA-event time per call, and the CUDA-graph replay of the
-    plain loop (the yardstick, ROADMAP.md §2)."""
+    input: the kernel's device time per call (torch.profiler, median of
+    5 windows), the plain loop's device time and launches
+    (torch.profiler, one call after a warm-up) and its CUDA-event time
+    per call, and the CUDA-graph replay of the plain loop (the
+    yardstick, ROADMAP.md §2). The bound counts the call's inputs and
+    outputs, not a wrapper's scratch."""
     iters = 20
     out = {"max_abs_err": kernel_err(kernel, plain, args)}
     dev = kernel_event_ms(lambda: kernel(*args), name.rsplit("_", 1)[0],
-                          iters)
-    out.update(ms=dev["ms"], spread=dev["spread"], lost=dev["lost_events"])
+                          iters, KERNELS_PER_CALL.get(name, 1))
+    out.update(ms=dev["ms"], spread=dev["spread"], lost=dev["lost_events"],
+               dropped=dev["dropped_windows"], per_kernel=dev["per_kernel"],
+               kernels_per_call=KERNELS_PER_CALL.get(name, 1))
     out["event_ms"] = time_cuda(lambda: kernel(*args), iters)
     plain(*args)
     out["plain_launches"], out["plain_ms"] = kernel_launches(
@@ -781,10 +829,16 @@ def kernel_numbers(name: str, kernel, plain, args, ops: int) -> dict:
 
 
 def print_kernel_numbers(tag: str, label: str, n: dict) -> None:
+    k = n["kernels_per_call"]
+    split = ""
+    if k > 1:
+        split = " = " + " + ".join(f"{ms:.6f} ({name})" for name, ms
+                                   in n["per_kernel"].items())
     print(f"{tag} {label} {n['shape']}: max_abs_err={n['max_abs_err']}; "
-          f"device ms per launch (profiler, median [min, max] of 5 "
-          f"windows of 20 calls) {n['ms']:.6f} {n['spread']} (events not "
-          f"recorded {n['lost']} of 100), "
+          f"device ms per call, {k} kernel(s) (profiler, median [min, max] "
+          f"of 5 windows of 20 calls) {n['ms']:.6f}{split} {n['spread']} "
+          f"(events not recorded {n['lost']} of {100 * k}; windows set "
+          f"aside for losing all of a kernel's events {n['dropped']}), "
           f"CUDA-event ms per call {n['event_ms']:.6f}; plain loop: "
           f"{n['plain_launches']} launches, device ms {n['plain_ms']:.6f}, "
           f"CUDA-event ms {n['event_plain_ms']:.3f}; CUDA-graph replay of "
@@ -820,7 +874,7 @@ def phase_h264_kernels(tag: str) -> dict:
           f" / all true / all false): max_abs_err="
           f"{max(errs['h264_intra16_cols'])}")
     gen = np.random.default_rng(2027)
-    for w, h in ((EDGE_W, EDGE_H), (1920, 1088)):
+    for w, h in ((EDGE_W, EDGE_H), (ODD_W, ODD_H), (1920, 1088)):
         for qp, qp_c in ((0, 0), (51, 51), (28, 28)):
             a = random_deblock_args(gen, w, h, qp, qp_c)
             errs["h264_deblock_rows"].append(
@@ -829,11 +883,12 @@ def phase_h264_kernels(tag: str) -> dict:
                 a = random_intra16_args(gen, w, h, qp, qp_c, scan)
                 errs["h264_intra16_cols"].append(
                     kernel_err(*pairs["h264_intra16_cols"], a))
-    print(f"{tag} K2 / K3 on random planes {EDGE_W}x{EDGE_H} and "
-          f"1920x1088 (bS drawn from 0..4 everywhere; K3 with and without "
-          f"a random mask), qp / qp_c 0, 51, 28: max_abs_err "
-          f"{max(errs['h264_deblock_rows'][-6:])} / "
-          f"{max(errs['h264_intra16_cols'][-12:])}")
+    print(f"{tag} K2 / K3 on random planes {EDGE_W}x{EDGE_H}, "
+          f"{ODD_W}x{ODD_H} ({ODD_W // 16} MB columns) and 1920x1088 (bS "
+          f"drawn from 0..4 everywhere; K3 with and without a random mask), "
+          f"qp / qp_c 0, 51, 28: max_abs_err "
+          f"{max(errs['h264_deblock_rows'][-9:])} / "
+          f"{max(errs['h264_intra16_cols'][-18:])}")
     real = capture_h264_kernel_inputs(1920, 1088, 6)
     ops = {"h264_deblock_rows": DEBLOCK_OPS_PER_MB,
            "h264_intra16_cols": INTRA16_OPS_PER_MB}
@@ -1801,6 +1856,85 @@ def phase_app_gpu_equals_cpu(tag: str, tmpdir) -> None:
                   f"({time.perf_counter() - t:.2f} s)")
 
 
+DESIGNS = {
+    "h264_deblock": "one-cta-per-mb-row, luma and chroma warps, "
+                    "cp.async chunk ring",
+    "h264_intra16": "carry pass one-cta-per-mb-row (chains on shuffles, "
+                    "producer warps), then code pass one-warp-per-mb",
+}
+
+# Run in another tree's directory by `--compare-h264`: that tree's own
+# build, phase 3 for K2 and K3, phase 10 and phase 12, their numbers as
+# one line. Both trees' kernels are timed by this file's kernel_event_ms
+# (argv[1]), so one method of reading the profiler measures both.
+_TREE_PHASE = """
+import importlib.util, json, sys
+sys.path.insert(0, ".")
+import chip_smoke as c
+spec = importlib.util.spec_from_file_location("timing", sys.argv[1])
+timing = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(timing)
+c.kernel_event_ms = timing.kernel_event_ms
+tag = "[" + c.nvidia_smi_line() + "]"
+c.build_kernels(tag)
+n = c.phase_h264_kernels(tag)
+cabac = c.phase_cabac_main_path(tag)
+app = c.phase_h264_app_loop(tag)
+print("H264_KERNELS " + json.dumps({
+    "kernels": n, "cabac_main_path": {
+        k: v for k, v in cabac.items() if k != "first_two"},
+    "h264_app_loop": app}))
+"""
+
+
+def compare_h264(other: Path) -> dict:
+    """K2 and K3 and the H.264 paths that run them, of another tree (e.g.
+    the parent commit unpacked with git archive) against this one's on
+    the same card: each tree's phase 3 for K2 and K3, phase 10 (CABAC
+    main path) and phase 12 (H.264 app loop) in its own process, in
+    turns other, this, this, other. Prints and returns each run's device
+    ms per call on the real 1080p IDR and P inputs, phase 10's frames/s
+    and device ms per frame and phase 12's frames/s and watchdog gap;
+    each run's full output goes to build/compare/compare_<i>_<tree>.log."""
+    logs = ROOT / "build" / "compare"
+    logs.mkdir(parents=True, exist_ok=True)
+    runs = []
+    for i, tree in enumerate((other, ROOT, ROOT, other)):
+        which = "this" if tree == ROOT else "other"
+        proc = subprocess.run([sys.executable, "-c", _TREE_PHASE,
+                               str(Path(__file__).resolve())],
+                              cwd=tree, capture_output=True, text=True,
+                              timeout=900)
+        (logs / f"compare_{i}_{which}.log").write_text(proc.stdout
+                                                       + proc.stderr)
+        check(proc.returncode == 0,
+              f"phase 3 of {tree} failed:\n{proc.stderr[-3000:]}")
+        line = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("H264_KERNELS ")][-1]
+        numbers = json.loads(line.split(" ", 1)[1])
+        row = {"tree": which}
+        for name in ("h264_deblock_rows", "h264_intra16_cols"):
+            for kind in ("IDR", "P"):
+                n = numbers["kernels"][name][kind]
+                row[f"{name} {kind}"] = n["ms"]
+                row[f"{name} {kind} event_ms"] = n["event_ms"]
+            check(numbers["kernels"][name]["max_abs_err"] == 0,
+                  f"{name} of {tree} differs from its plain version")
+        cabac, app = numbers["cabac_main_path"], numbers["h264_app_loop"]
+        row.update({
+            "phase 10 fps": cabac["fps"],
+            "phase 10 fps runs 2-3": cabac["fps_runs_2_3"],
+            "phase 10 device ms per P": cabac["device_ms_per_p_frame"],
+            "phase 10 device ms per IDR": cabac["device_ms_per_idr"],
+            "phase 10 bytes IDR / P": [cabac["bytes_idr"],
+                                       cabac["bytes_p_mean"]],
+            "phase 12 fps": app["fps"],
+            "phase 12 watchdog gap s": app["longest_watchdog_gap_s"]})
+        runs.append(row)
+        print(f"compare run {i} ({which}, {tree}): " + json.dumps(row))
+    return {"runs": runs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this "
@@ -1808,6 +1942,11 @@ def main() -> int:
         return 2
     import ceracoder_tpu_torch  # noqa: F401  (fails outside the repo)
 
+    if sys.argv[1:2] == ["--compare-h264"]:
+        print(nvidia_smi_line())
+        print(json.dumps({"compare_h264": compare_h264(
+            Path(sys.argv[2]).resolve())}))
+        return 0
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
@@ -1881,7 +2020,10 @@ def main() -> int:
             "ms_idr": idr["ms"], "plain_ms_idr": idr["plain_ms"],
             "graph_replay_ms_idr": idr["graph_ms"],
             "bound_ms_idr": idr["bound_ms"],
-            "design": "one-cta-per-mb-row", **launches(name),
+            "kernels_per_call": n["kernels_per_call"],
+            "ms_per_kernel": n["per_kernel"],
+            "ms_per_kernel_idr": idr["per_kernel"],
+            "design": DESIGNS[src], **launches(name),
         })
     # K4 runs on every HEVC IDR: the HEVC path (bench.py's default), the
     # HEVC app loop and the SAO path

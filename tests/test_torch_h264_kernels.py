@@ -3,8 +3,11 @@
 versions against the JAX package on chip_smoke.py's edge cases (bS 0-4,
 qp and qp_c at 0, 17, 28, 51 and mixed, is_intra masks random, all true
 and all false), the public functions on CPU tensors against the plain
-versions, the wrappers' input checks and a failed build, and — on a
-card — each kernel against its plain version on the same cases.
+versions, the wrappers' input checks and a failed build, a plain-torch
+model of K3's carry pass (right-hand blocks only, DCs from block sums)
+against the plain loop, and — on a card — each kernel against its plain
+version on the same cases and on random planes with an odd number of MB
+columns.
 
 All at chip_smoke.py's EDGE_W x EDGE_H (112x48: 7 MB columns, for
 which the JAX scans compile one column per step), exact."""
@@ -29,6 +32,18 @@ from ceracoder_tpu_torch.ops.intra import (
     _encode_mb_cols_ref,
     encode_frame_i16_rows,
     h264_intra16_cols,
+)
+from ceracoder_tpu_torch.ops.transform import (
+    dequant4,
+    dequant_dc2,
+    dequant_dc4,
+    fdct4,
+    hadamard2_fwd,
+    hadamard4_fwd,
+    idct4,
+    quant4,
+    quant_dc2,
+    quant_dc4,
 )
 from chip_smoke import EDGE_H, EDGE_W, deblock_edge_cases, intra16_edge_cases
 
@@ -163,6 +178,104 @@ def test_public_functions_run_the_plain_versions_on_cpu():
                             for k, w in want.items()})
 
 
+def _right_blocks_recon(orig, pred, dcq, qp: int):
+    """The right-hand 4x4 blocks of one MB column, batched: orig (R, n,
+    4, 4) source blocks (n block rows), pred (R, n, 4) their rows'
+    predictions, dcq (R, n) their dequantized DCs. Returns the blocks'
+    reconstructed right column, (R, 4 * n)."""
+    w = fdct4(orig - pred[..., None])
+    z = quant4(w, qp)
+    z[..., 0, 0] = 0
+    d = dequant4(z, qp)
+    d[..., 0, 0] = dcq
+    rec = (pred[..., None] + idct4(d)).clamp(0, 255)
+    return rec[..., 3].reshape(orig.shape[0], -1)
+
+
+def _carry_model(y, u, v, qp, qp_c, is_intra=None, inter_recon=None):
+    """A plain-torch model of K3's carry pass: per MB column, batched over
+    MB rows, the modes from the SADs, the DC paths from each 4x4 block's
+    sum less the prediction's (4 * its left samples' sum for H, 16 * the
+    DC value), and the reconstruction of the right-hand blocks only
+    (luma block column 3, chroma 1). Returns the left column each MB is
+    coded with ((mbh, mbw, 16), (mbh, mbw, 8) u and v) and the modes."""
+    mbh, mbw = y.shape[0] // 16, y.shape[1] // 16
+
+    def mbs(x, s):
+        return x.to(torch.int32).reshape(mbh, s, mbw, s).transpose(1, 2)
+    ymb, umb, vmb = mbs(y, 16), mbs(u, 8), mbs(v, 8)
+    if is_intra is not None:
+        rmb = [mbs(p, s) for p, s in zip(inter_recon, (16, 8, 8))]
+    left = [torch.full((mbh, n), 128, dtype=torch.int32) for n in (16, 8, 8)]
+    lefts, modes = [], []
+    for c in range(mbw):
+        lefts.append(left)
+        ly, lu, lv = left
+        o = ymb[:, c]
+        dc = (ly.sum(-1) + 8) >> 4
+        use_h = ((o - ly[:, :, None]).abs().sum((1, 2))
+                 < (o - dc[:, None, None]).abs().sum((1, 2)))
+        bsum = o.reshape(mbh, 4, 4, 4, 4).sum((2, 4))
+        psum = torch.where(use_h[:, None, None],
+                           4 * ly.reshape(mbh, 4, 4).sum(-1)[:, :, None],
+                           16 * dc[:, None, None])
+        dcq = dequant_dc4(quant_dc4(hadamard4_fwd(bsum - psum), qp), qp)
+        pred = torch.where(use_h[:, None], ly, dc[:, None])
+        right = o[:, :, 12:].reshape(mbh, 4, 4, 4)
+        new = [_right_blocks_recon(right, pred.reshape(mbh, 4, 4),
+                                   dcq[:, :, 3], qp)]
+        # chroma: H or DC on the summed SAD of u and v
+        cs = [(cm[:, c], lc, (lc.reshape(mbh, 2, 4).sum(-1) + 2) >> 2)
+              for cm, lc in ((umb, lu), (vmb, lv))]
+        sad_h = sum((cm - lc[:, :, None]).abs().sum((1, 2))
+                    for cm, lc, _ in cs)
+        sad_dc = sum((cm - dcs.repeat_interleave(4, 1)[:, :, None]).abs()
+                     .sum((1, 2)) for cm, _, dcs in cs)
+        cuse_h = sad_h < sad_dc
+        for cm, lc, dcs in cs:
+            bsum = cm.reshape(mbh, 2, 4, 2, 4).sum((2, 4))
+            psum = torch.where(cuse_h[:, None, None],
+                               4 * lc.reshape(mbh, 2, 4).sum(-1)[:, :, None],
+                               16 * dcs[:, :, None])
+            dcq = dequant_dc2(quant_dc2(hadamard2_fwd(bsum - psum), qp_c),
+                              qp_c)
+            pred = torch.where(cuse_h[:, None], lc,
+                               dcs.repeat_interleave(4, 1))
+            right = cm[:, :, 4:].reshape(mbh, 2, 4, 4)
+            new.append(_right_blocks_recon(right, pred.reshape(mbh, 2, 4),
+                                           dcq[:, :, 1], qp_c))
+        if is_intra is not None:
+            new = [torch.where(is_intra[:, c, None], n, r[:, c, :, -1])
+                   for n, r in zip(new, rmb)]
+        left = new
+        modes.append((torch.where(use_h, 1, 2), torch.where(cuse_h, 1, 0)))
+    return ([torch.stack([lf[k] for lf in lefts], 1) for k in range(3)],
+            [torch.stack([m[k] for m in modes], 1) for k in range(2)])
+
+
+@pytest.mark.parametrize("name", list(INTRA16_CASES))
+def test_carry_model_matches_plain_loop(name):
+    """K3's split is sound: the carry pass's shortcuts give every MB the
+    left column and modes that the plain loop codes it with."""
+    y, u, v, qp, qp_c, mask, recon = INTRA16_CASES[name]
+    args = (*_t((y, u, v)), qp, qp_c)
+    extra = () if mask is None else (_t(mask), _t(recon))
+    want = _encode_mb_cols_ref(*args, *extra)
+    (ly, lu, lv), (ml, mc) = _carry_model(*args, *extra)
+    assert torch.equal(ml.to(torch.uint8), want["mode_luma"])
+    assert torch.equal(mc.to(torch.uint8), want["mode_chroma"])
+    for got, rec, s, k in zip((ly, lu, lv), want["recon"], (16, 8, 8),
+                              range(3)):
+        right = rec.to(torch.int32).reshape(MBH, s, MBW, s)[..., -1]
+        right = right.transpose(1, 2)                    # (mbh, mbw, s)
+        if mask is not None:
+            inter = _t(recon[k]).to(torch.int32).reshape(MBH, s, MBW, s)
+            right = torch.where(_t(mask)[:, :, None], right,
+                                inter[..., -1].transpose(1, 2))
+        assert torch.equal(got[:, 0], torch.full_like(got[:, 0], 128))
+        assert torch.equal(got[:, 1:], right[:, :-1])
+
+
 def _deblock_args():
     y, u, v, nnz, mv, qp, qp_c, intra, imb = DEBLOCK_CASES[
         "p_intra_mb_qp17_qpc17"]
@@ -237,13 +350,30 @@ def test_cuda_kernels_match_plain_versions(kind):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
                     "False); chip_smoke.py runs these cases on the card")
-    from chip_smoke import _cuda, deblock_case_args, kernel_err
+    from chip_smoke import (
+        ODD_W,
+        ODD_H,
+        _cuda,
+        deblock_case_args,
+        kernel_err,
+        random_deblock_args,
+        random_intra16_args,
+    )
 
+    gen = np.random.default_rng(2029)
     if kind == "deblock":
         for case in DEBLOCK_CASES.values():
             assert kernel_err(h264_deblock_rows, deblock_frame_rows_ref,
-                                   deblock_case_args(case)) == 0
+                              deblock_case_args(case)) == 0
+        # an odd number of MB columns: chroma rows 8-byte aligned only,
+        # and a ragged last chunk
+        assert kernel_err(h264_deblock_rows, deblock_frame_rows_ref,
+                          random_deblock_args(gen, ODD_W, ODD_H, 28, 28)) == 0
     else:
         for case in INTRA16_CASES.values():
             assert kernel_err(h264_intra16_cols, _encode_mb_cols_ref,
-                                   _cuda(case)) == 0
+                              _cuda(case)) == 0
+        for scan in (False, True):
+            assert kernel_err(h264_intra16_cols, _encode_mb_cols_ref,
+                              random_intra16_args(gen, ODD_W, ODD_H, 28, 28,
+                                                  scan)) == 0
