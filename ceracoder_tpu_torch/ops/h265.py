@@ -813,16 +813,25 @@ def _check_intra_cols(y, u, v, qp: int, qp_c: int) -> None:
         ("v", v, torch.uint8, (h // 2, w // 2))], (qp, qp_c))
 
 
+# bytes per CTB of the carry pass's scratch: the left columns of 16 luma
+# and 8 + 8 chroma samples that the CTB is coded with
+_SCRATCH = 32
+
+
 @functools.lru_cache(maxsize=None)
-def _intra_launcher():
-    """K4's C entry point (built and loaded at first use)."""
+def _intra_launchers():
+    """K4's two C entry points, the carry pass and the code pass (built
+    and loaded at first use)."""
     from ceracoder_tpu_torch.utils.cuda_build import load_library
 
-    fn = load_library("h265_intra").h265_intra_launch
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 4 + [
+    lib = load_library("h265_intra")
+    carry, code = lib.h265_intra_carry_launch, lib.h265_intra_code_launch
+    carry.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    code.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 4 + [
+        ctypes.c_void_p]
+    carry.restype = code.restype = ctypes.c_int
+    return carry, code
 
 
 def h265_intra_cols(y, u, v, qp: int, qp_c: int) -> dict:
@@ -830,11 +839,14 @@ def h265_intra_cols(y, u, v, qp: int, qp_c: int) -> dict:
     (K4); arguments and result as `_i_frame_cols_ref`: y (H, W) uint8
     with H, W multiples of 16, u and v (H/2, W/2) uint8, all contiguous.
 
-    On a CUDA tensor this launches the kernel of csrc/h265_intra.cu (one
-    CTA per CTB row, the CTB columns in a loop; it also writes the
-    constant is_intra, mv and tu_split) on the current stream, or
-    raises; on a CPU tensor it runs `_i_frame_cols_ref`.
-    `h265_intra_cols.launches` counts kernel launches."""
+    On a CUDA tensor this launches the two kernels of csrc/h265_intra.cu
+    on the current stream, or raises: the carry pass (one CTA per CTB
+    row, the CTB columns in a loop), which writes the modes and each
+    CTB's left columns to a scratch buffer, then the code pass (one warp
+    per CTB), which writes the levels, the reconstruction and the
+    constant is_intra, mv and tu_split. On a CPU tensor it runs
+    `_i_frame_cols_ref`. `h265_intra_cols.launches` counts calls that
+    launched K4, one per IDR; each launches both kernels."""
     qp, qp_c = int(qp), int(qp_c)
     _check_intra_cols(y, u, v, qp, qp_c)
     if y.device.type == "cpu":
@@ -851,19 +863,26 @@ def h265_intra_cols(y, u, v, qp: int, qp_c: int) -> dict:
            "cr_lv": empty(CTB // 2, CTB // 2),
            "recon": (torch.empty_like(y), torch.empty_like(u),
                      torch.empty_like(v))}
-    launch = _intra_launcher()
+    scratch = empty(_SCRATCH, dtype=torch.uint8)   # not an output
+    planes = (y.data_ptr(), u.data_ptr(), v.data_ptr())
+    carry, code = _intra_launchers()
     with torch.cuda.device(y.device):
         stream = torch.cuda.current_stream(y.device).cuda_stream
-        err = launch(y.data_ptr(), u.data_ptr(), v.data_ptr(),
-                     *(out[k].data_ptr() for k in ("mode", "luma_lv",
-                                                   "cb_lv", "cr_lv")),
-                     *(p.data_ptr() for p in out["recon"]),
-                     *(out[k].data_ptr() for k in ("is_intra", "tu_split",
-                                                   "mv")),
-                     nch, ncw, qp, qp_c, stream)
-    if err != 0:
-        raise RuntimeError(f"h265_intra_cols kernel launch failed: CUDA "
-                           f"error {err}")
+        err = carry(*planes, out["mode"].data_ptr(), scratch.data_ptr(),
+                    nch, ncw, qp, qp_c, stream)
+        if err != 0:
+            raise RuntimeError(f"h265_intra_cols carry kernel launch "
+                               f"failed: CUDA error {err}")
+        err = code(*planes, scratch.data_ptr(), out["mode"].data_ptr(),
+                   *(out[k].data_ptr() for k in ("luma_lv", "cb_lv",
+                                                 "cr_lv")),
+                   *(p.data_ptr() for p in out["recon"]),
+                   *(out[k].data_ptr() for k in ("is_intra", "tu_split",
+                                                 "mv")),
+                   nch, ncw, qp, qp_c, stream)
+        if err != 0:
+            raise RuntimeError(f"h265_intra_cols code kernel launch "
+                               f"failed: CUDA error {err}")
     h265_intra_cols.launches += 1
     return out
 

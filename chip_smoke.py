@@ -16,8 +16,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    and on the real inputs of a 1080p IDR and P frame (K4: the 1080p IDR
    and one 3840x2160 IDR of the device source; K2 and K3 also on random
    planes of an odd number of MB columns, ODD_W x ODD_H), bit-equal;
-   timed (torch.profiler device time per call over 5 windows: K3's call
-   is two kernels, each one's mean event summed; and CUDA events) beside
+   timed (torch.profiler device time per call over 5 windows: K3's and
+   K4's calls are two kernels each, each one's mean event summed; and
+   CUDA events) beside
    the plain version, one-call PyTorch yardsticks where there are any
    (K1), the CUDA-graph replay of the plain loop (K2-K4) and the bytes
    and operations bound;
@@ -96,11 +97,13 @@ and the result line {"ok": true, "device": {...}}. It prints no result
 and exits non-zero without CUDA or without the repository beside it.
 
     python3 chip_smoke.py --compare-h264 DIR
+    python3 chip_smoke.py --compare-h265 DIR
 
-runs only phase 3's K2 and K3 part, phase 10 and phase 12, of the tree
-in DIR (e.g. the parent commit from `git archive`, unpacked under
-build/) and of this one, in turns DIR, this, this, DIR, each in its own
-process on the same card.
+run only phase 3's K2 and K3 part, phase 10 and phase 12 (H.264), or
+phase 3's K4 part, phase 6 and phase 8 (HEVC), of the tree in DIR (e.g.
+the parent commit from `git archive`, unpacked under build/) and of this
+one, in turns DIR, this, this, DIR, each in its own process on the same
+card.
 """
 
 from __future__ import annotations
@@ -786,9 +789,9 @@ H265_INTRA_OPS_PER_CTB = (12 * 256 * (6 + 1) + 48 * (16 * 24 + 128)
                           + 128 * (6 + 1 + 4 * 2 * 8 + 13))
 
 
-# kernels that one call of a wrapper launches (K3: its carry pass and
-# its code pass), where not 1
-KERNELS_PER_CALL = {"h264_intra16_cols": 2}
+# kernels that one call of a wrapper launches (K3 and K4: a carry pass
+# and a code pass), where not 1
+KERNELS_PER_CALL = {"h264_intra16_cols": 2, "h265_intra_cols": 2}
 
 
 def kernel_numbers(name: str, kernel, plain, args, ops: int) -> dict:
@@ -1861,14 +1864,18 @@ DESIGNS = {
                     "cp.async chunk ring",
     "h264_intra16": "carry pass one-cta-per-mb-row (chains on shuffles, "
                     "producer warps), then code pass one-warp-per-mb",
+    "h265_intra": "carry pass one-cta-per-ctb-row (a warp per candidate, "
+                  "one luma-tail warp, chroma off the chain, producer warps; "
+                  "int8 mma.sync products), then code pass one-warp-per-ctb",
 }
 
-# Run in another tree's directory by `--compare-h264`: that tree's own
-# build, phase 3 for K2 and K3, phase 10 and phase 12, their numbers as
-# one line. Both trees' kernels are timed by this file's kernel_event_ms
-# (argv[1]), so one method of reading the profiler measures both.
-_TREE_PHASE = """
-import importlib.util, json, sys
+# Run in another tree's directory by `--compare-h264` / `--compare-h265`:
+# that tree's own build, then its phases, their numbers as one line. Both
+# trees' kernels are timed by this file's kernel_event_ms (argv[1]), so
+# one method of reading the profiler measures both.
+_TREE_PRELUDE = """
+import importlib.util, json, sys, tempfile
+from pathlib import Path
 sys.path.insert(0, ".")
 import chip_smoke as c
 spec = importlib.util.spec_from_file_location("timing", sys.argv[1])
@@ -1877,6 +1884,10 @@ spec.loader.exec_module(timing)
 c.kernel_event_ms = timing.kernel_event_ms
 tag = "[" + c.nvidia_smi_line() + "]"
 c.build_kernels(tag)
+"""
+_TREE_PHASES = {
+    # phase 3 for K2 and K3, phase 10, phase 12
+    "H264": """
 n = c.phase_h264_kernels(tag)
 cabac = c.phase_cabac_main_path(tag)
 app = c.phase_h264_app_loop(tag)
@@ -1884,35 +1895,60 @@ print("H264_KERNELS " + json.dumps({
     "kernels": n, "cabac_main_path": {
         k: v for k, v in cabac.items() if k != "first_two"},
     "h264_app_loop": app}))
-"""
+""",
+    # phase 3 for K4, phase 6, phase 8
+    "H265": """
+n = c.phase_h265_kernels(tag)
+hevc = c.phase_hevc_main_path(tag)
+with tempfile.TemporaryDirectory(dir=c.ROOT / "build") as d:
+    app = c.phase_app_loop(tag, Path(d))
+print("H265_KERNELS " + json.dumps({
+    "kernels": n, "hevc_main_path": {
+        k: v for k, v in hevc.items() if k != "first_two"},
+    "app_loop": app}))
+""",
+}
 
 
-def compare_h264(other: Path) -> dict:
-    """K2 and K3 and the H.264 paths that run them, of another tree (e.g.
-    the parent commit unpacked with git archive) against this one's on
-    the same card: each tree's phase 3 for K2 and K3, phase 10 (CABAC
-    main path) and phase 12 (H.264 app loop) in its own process, in
-    turns other, this, this, other. Prints and returns each run's device
-    ms per call on the real 1080p IDR and P inputs, phase 10's frames/s
-    and device ms per frame and phase 12's frames/s and watchdog gap;
-    each run's full output goes to build/compare/compare_<i>_<tree>.log."""
+def compare_trees(other: Path, codec: str, summarize) -> list:
+    """Run `_TREE_PHASES[codec]` of another tree (e.g. the parent commit
+    unpacked with git archive) and of this one on the same card, each in
+    its own process, in turns other, this, this, other. Returns each
+    run's row, `summarize(numbers, tree)` with the tree's name; each
+    run's full output goes to build/compare/ (compare_<i>_<tree>.log for
+    H.264, compare_h265_<i>_<tree>.log for HEVC)."""
     logs = ROOT / "build" / "compare"
     logs.mkdir(parents=True, exist_ok=True)
+    prefix = "compare" if codec == "H264" else "compare_h265"
     runs = []
     for i, tree in enumerate((other, ROOT, ROOT, other)):
         which = "this" if tree == ROOT else "other"
-        proc = subprocess.run([sys.executable, "-c", _TREE_PHASE,
-                               str(Path(__file__).resolve())],
-                              cwd=tree, capture_output=True, text=True,
-                              timeout=900)
-        (logs / f"compare_{i}_{which}.log").write_text(proc.stdout
-                                                       + proc.stderr)
+        proc = subprocess.run(
+            [sys.executable, "-c", _TREE_PRELUDE + _TREE_PHASES[codec],
+             str(Path(__file__).resolve())], cwd=tree, capture_output=True,
+            text=True, timeout=900)
+        (logs / f"{prefix}_{i}_{which}.log").write_text(proc.stdout
+                                                        + proc.stderr)
         check(proc.returncode == 0,
-              f"phase 3 of {tree} failed:\n{proc.stderr[-3000:]}")
+              f"the {codec} phases of {tree} failed:\n{proc.stderr[-3000:]}")
         line = [ln for ln in proc.stdout.splitlines()
-                if ln.startswith("H264_KERNELS ")][-1]
-        numbers = json.loads(line.split(" ", 1)[1])
-        row = {"tree": which}
+                if ln.startswith(f"{codec}_KERNELS ")][-1]
+        row = {"tree": which,
+               **summarize(json.loads(line.split(" ", 1)[1]), tree)}
+        runs.append(row)
+        print(f"compare run {i} ({which}, {tree}): " + json.dumps(row))
+    return runs
+
+
+def compare_h264(other: Path) -> dict:
+    """K2 and K3 and the H.264 paths that run them, of another tree
+    against this one's (compare_trees): each tree's phase 3 for K2 and
+    K3, phase 10 (CABAC main path) and phase 12 (H.264 app loop). Each
+    run's row: device ms per call on the real 1080p IDR and P inputs,
+    phase 10's frames/s and device ms per frame and phase 12's frames/s
+    and watchdog gap."""
+    def summarize(numbers, tree):
+        row = {}
         for name in ("h264_deblock_rows", "h264_intra16_cols"):
             for kind in ("IDR", "P"):
                 n = numbers["kernels"][name][kind]
@@ -1930,9 +1966,39 @@ def compare_h264(other: Path) -> dict:
                                        cabac["bytes_p_mean"]],
             "phase 12 fps": app["fps"],
             "phase 12 watchdog gap s": app["longest_watchdog_gap_s"]})
-        runs.append(row)
-        print(f"compare run {i} ({which}, {tree}): " + json.dumps(row))
-    return {"runs": runs}
+        return row
+    return {"runs": compare_trees(other, "H264", summarize)}
+
+
+def compare_h265(other: Path) -> dict:
+    """K4 and the HEVC paths that run it, of another tree against this
+    one's (compare_trees): each tree's phase 3 for K4, phase 6 (HEVC main
+    path) and phase 8 (HEVC app loop). Each run's row: device ms per
+    call (and per kernel, where the call launches more than one) on the
+    real 1080p and 4K IDR inputs, phase 6's frames/s, bytes and device
+    ms and launches per IDR, and phase 8's frames/s and watchdog gap."""
+    def summarize(numbers, tree):
+        k = numbers["kernels"]
+        check(k["max_abs_err"] == 0,
+              f"h265_intra_cols of {tree} differs from its plain version")
+        row = {}
+        for kind in ("1080p", "4K"):
+            row[f"K4 {kind}"] = k[kind]["ms"]
+            row[f"K4 {kind} spread"] = k[kind]["spread"]
+            row[f"K4 {kind} per kernel"] = k[kind]["per_kernel"]
+            row[f"K4 {kind} event_ms"] = k[kind]["event_ms"]
+        hevc, app = numbers["hevc_main_path"], numbers["app_loop"]
+        row.update({
+            "phase 6 fps": hevc["fps"],
+            "phase 6 fps runs 2-3": hevc["fps_runs_2_3"],
+            "phase 6 bytes IDR / P": [hevc["bytes_idr"],
+                                      hevc["bytes_p_mean"]],
+            "phase 6 device ms per IDR": hevc["device_ms_per_idr"],
+            "phase 6 launches per IDR": hevc["launches_per_idr"],
+            "phase 8 fps": app["fps"],
+            "phase 8 watchdog gap s": app["longest_watchdog_gap_s"]})
+        return row
+    return {"runs": compare_trees(other, "H265", summarize)}
 
 
 def main() -> int:
@@ -1942,10 +2008,11 @@ def main() -> int:
         return 2
     import ceracoder_tpu_torch  # noqa: F401  (fails outside the repo)
 
-    if sys.argv[1:2] == ["--compare-h264"]:
+    compares = {"--compare-h264": compare_h264, "--compare-h265": compare_h265}
+    if sys.argv[1:2] and sys.argv[1] in compares:
         print(nvidia_smi_line())
-        print(json.dumps({"compare_h264": compare_h264(
-            Path(sys.argv[2]).resolve())}))
+        print(json.dumps({sys.argv[1][2:].replace("-", "_"): compares[
+            sys.argv[1]](Path(sys.argv[2]).resolve())}))
         return 0
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
@@ -2041,7 +2108,10 @@ def main() -> int:
         "plain_launches": n["plain_launches"],
         "ms_4k": n4k["ms"], "plain_ms_4k": n4k["plain_ms"],
         "graph_replay_ms_4k": n4k["graph_ms"], "bound_ms_4k": n4k["bound_ms"],
-        "design": "one-cta-per-ctb-row", **launches(name),
+        "kernels_per_call": n["kernels_per_call"],
+        "ms_per_kernel": n["per_kernel"],
+        "ms_per_kernel_4k": n4k["per_kernel"],
+        "design": DESIGNS["h265_intra"], **launches(name),
     })
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -4,8 +4,10 @@ version `_i_frame_cols_ref` against the JAX package's IDR core
 chip_smoke.py's `h265_intra_edge_cases` (flat planes, noise, stripes at
 each angle of modes 2..9, ramps; qp / qp_c from 0 to 51), the public
 `_i_frame_core` on CPU tensors against the plain version, the wrapper's
-input checks and a failed build, and — on a card — the kernel against
-its plain version on the same cases.
+input checks and a failed build, a plain-torch model of the kernel's
+carry pass (`_carry_model`: the shortcuts it takes) against the plain
+loop, and — on a card — the kernel against its plain version on the
+same cases.
 
 All at chip_smoke.py's EDGE_W x EDGE_H (112x48: 7 CTB columns, for
 which JAX's scan takes one column per step), exact."""
@@ -15,10 +17,16 @@ import pytest
 import torch
 
 from ceracoder_tpu.ops.h265 import _i_core_jit
+from ceracoder_tpu_torch.codec.h265.tables import T8, T16
 from ceracoder_tpu_torch.ops.h265 import (
     _MODES,
+    _argmin_first,
+    _dequantize,
     _i_frame_cols_ref,
     _i_frame_core,
+    _intra_preds,
+    _quantize,
+    _select_cand,
     h265_intra_cols,
 )
 from chip_smoke import H265_INTRA_QPS, h265_intra_edge_cases
@@ -73,6 +81,83 @@ def test_public_functions_run_the_plain_version_on_cpu():
     wide = tuple(torch.cat([p, p], dim=1)[:, :p.shape[1]] for p in args)
     assert not wide[0].is_contiguous()
     _assert_equal(_i_frame_core(*wide, qp, qp_c), want)
+
+
+# the 8-point Walsh-Hadamard matrix in natural order, W[u][r] =
+# (-1)^popcount(u & r), as the kernel's butterflies give it
+W8 = torch.tensor([[(-1) ** bin(u & r).count("1") for r in range(8)]
+                   for u in range(8)], dtype=torch.int64)
+
+
+def _blocks8(x):
+    """(..., 16, 16) -> (..., 2, 2, 8, 8): the four 8x8 blocks (by, bx)."""
+    return x.reshape(*x.shape[:-2], 2, 8, 2, 8).transpose(-3, -2)
+
+
+def _tail(src, pred, qp: int, t, log2n: int):
+    """The carry pass's TU tail: stage 1 as T . src less T . pred, stage 2,
+    quant and dequant, the inverse stage 1 in full and the inverse stage 2
+    for the last column only; returns that column of the reconstruction,
+    (R, n)."""
+    s1, s2 = log2n - 1, log2n + 6
+    a = (t @ src - t @ pred + (1 << (s1 - 1))) >> s1
+    coef = (a @ t.T + (1 << (s2 - 1))) >> s2
+    dq = _dequantize(_quantize(coef, qp, log2n), qp, log2n)
+    a2 = ((t.T @ dq + 64) >> 7).clamp(-32768, 32767)
+    res = ((a2 @ t[:, -1] + 2048) >> 12).clamp(-32768, 32767)
+    return (pred[:, :, -1] + res).clamp(0, 255)
+
+
+def _carry_model(y, u, v, qp: int, qp_c: int):
+    """A plain-torch model of K4's carry pass: per CTB column, batched over
+    CTB rows, the SATDs as sum |H(src) - H(pred)| (the source's Hadamards
+    taken apart from the candidates', as the kernel's producers do), the
+    first minimum, then only the last column of each reconstruction
+    (`_tail`). Returns the left columns each CTB is coded with ((nch, ncw,
+    16), (nch, ncw, 8) u and v) and the modes."""
+    i64 = torch.int64
+    nch, ncw = y.shape[0] // 16, y.shape[1] // 16
+    t16, t8 = torch.tensor(T16, dtype=i64), torch.tensor(T8, dtype=i64)
+
+    def ctbs(x, n):
+        return x.to(i64).reshape(nch, n, ncw, n).transpose(1, 2)
+    ys, us, vs = ctbs(y, 16), ctbs(u, 8), ctbs(v, 8)
+    left = [torch.full((nch, n), 128, dtype=i64) for n in (16, 8, 8)]
+    lefts, modes = [], []
+    for c in range(ncw):
+        lefts.append(left)
+        ly, lu, lv = left
+        src = ys[:, c]
+        hs = W8 @ _blocks8(src) @ W8
+        preds = _intra_preds(ly, 16, luma=True)             # (R, 12, 16, 16)
+        hp = W8 @ _blocks8(preds) @ W8                      # (R, 12, 2, 2, 8, 8)
+        satd = ((hs[:, None] - hp).abs().sum((-1, -2)) >> 2).sum((-1, -2))
+        midx = _argmin_first(satd, 1)
+        new = [_tail(src, _select_cand(preds, midx), qp, t16, 4)]
+        for cs, lc in ((us, lu), (vs, lv)):
+            pc = _select_cand(_intra_preds(lc, 8, luma=False), midx)
+            new.append(_tail(cs[:, c], pc, qp_c, t8, 3))
+        left = new
+        modes.append(torch.as_tensor(_MODES, dtype=i64)[midx])
+    return ([torch.stack([lf[k] for lf in lefts], 1) for k in range(3)],
+            torch.stack(modes, 1))
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_carry_model_matches_plain_loop(name):
+    """K4's split is sound: the carry pass's shortcuts give every CTB the
+    mode and the left columns that the plain loop codes it with."""
+    y, u, v, qp, qp_c = CASES[name]
+    args = _t((y, u, v))
+    want = _i_frame_cols_ref(*args, qp, qp_c)
+    lefts, mode = _carry_model(*args, qp, qp_c)
+    assert torch.equal(mode, want["mode"].to(torch.int64))
+    for got, rec, n in zip(lefts, want["recon"], (16, 8, 8)):
+        nch, ncw = got.shape[:2]
+        right = rec.to(torch.int64).reshape(nch, n, ncw, n)[..., -1]
+        right = right.transpose(1, 2)                       # (nch, ncw, n)
+        assert torch.equal(got[:, 0], torch.full_like(got[:, 0], 128))
+        assert torch.equal(got[:, 1:], right[:, :-1])
 
 
 def _args():
