@@ -2,7 +2,7 @@
 stream, and the native (C++) entropy coder.
 
 Copy of the parts of ceracoder_tpu/codec/h265/rowslice.py that the
-device run path needs on the host, cut to its I/P tile-row pictures:
+device run path needs on the host, cut to its I/P/B tile-row pictures:
 `densify_levels`, the tile-slice assembly, the native stage's
 context-offset order and `entropy_rows_native`, plus the inter/intra
 bias that the device's intra fallback uses. The stage is
@@ -61,7 +61,8 @@ def densify_levels(counts: np.ndarray, pos: np.ndarray,
 
 
 def _assemble_tiles(p: HevcParams, bodies: list[bytes], qp: int,
-                    idr: bool, poc: int, ref_poc_delta: int) -> bytes:
+                    idr: bool, poc: int, ref_poc_delta: int,
+                    slice_type: str | None) -> bytes:
     """One slice carrying one tile per CTB row: slice header with
     entry-point offsets (coded-domain byte sizes of tiles 0..N-2,
     spec 7.4.7.1 — emulation prevention bytes counted; regions never
@@ -70,6 +71,7 @@ def _assemble_tiles(p: HevcParams, bodies: list[bytes], qp: int,
     coded_sizes = [len(emulation_prevent(b)) for b in bodies[:-1]]
     hdr = slice_header_bits(p, idr=idr, qp=qp, poc=poc,
                             ref_poc_delta=ref_poc_delta,
+                            slice_type=slice_type,
                             tile_sizes=coded_sizes)
     return hdr.to_bytes() + b"".join(bodies)
 
@@ -86,18 +88,24 @@ _NATIVE_OFF_ORDER = (
 
 
 def entropy_rows_native(p: HevcParams, arrays: dict, qp: int, idr: bool,
-                        poc: int = 0, ref_poc_delta: int = 1) -> list[bytes]:
-    """Native (C++) entropy stage of an I or P picture: every CTB row is
-    one tile of a single slice (a one-row picture: one plain slice);
-    returns the slice's RBSP bytes, which the caller wraps in a NAL
-    unit. With `p.sao`, arrays["sao"] holds each CTB's (nch, ncw, 3, 6)
-    SAO parameters (ops/h265.py: sao_estimate_dev)."""
+                        poc: int = 0, ref_poc_delta: int = 1,
+                        slice_type: str | None = None) -> list[bytes]:
+    """Native (C++) entropy stage of an I, P or (``slice_type="B"``, with
+    arrays["mv1"]) B picture: every CTB row is one tile of a single
+    slice (a one-row picture: one plain slice); returns the slice's RBSP
+    bytes, which the caller wraps in a NAL unit. With `p.sao`,
+    arrays["sao"] holds each CTB's (nch, ncw, 3, 6) SAO parameters
+    (ops/h265.py: sao_estimate_dev); with `p.tu_split_inter`,
+    arrays["tu_split"] each CU's TU split flag."""
     lib = load_hevc_entropy()
+    slice_type = None if idr else slice_type
+    is_b = slice_type == "B"
 
     is_intra = np.ascontiguousarray(arrays["is_intra"], np.uint8)
     mode = np.ascontiguousarray(arrays["mode"], np.int32)
     mv = np.ascontiguousarray(arrays["mv"], np.int32)
-    mv1 = np.zeros_like(mv)                 # no second list (no B)
+    mv1 = (np.ascontiguousarray(arrays["mv1"], np.int32) if is_b
+           else np.zeros_like(mv))
     luma_lv = np.ascontiguousarray(arrays["luma_lv"], np.int16)
     cb_lv = np.ascontiguousarray(arrays["cb_lv"], np.int16)
     cr_lv = np.ascontiguousarray(arrays["cr_lv"], np.int16)
@@ -105,7 +113,7 @@ def entropy_rows_native(p: HevcParams, arrays: dict, qp: int, idr: bool,
     if (mode.shape != (nch, ncw) or mv.shape != (nch, ncw, 2)
             or luma_lv.shape != (nch, ncw, 16, 16)
             or cb_lv.shape != (nch, ncw, 8, 8)
-            or cr_lv.shape != cb_lv.shape):
+            or cr_lv.shape != cb_lv.shape or mv1.shape != mv.shape):
         raise ValueError("entropy arrays do not share one CTB grid")
 
     # tile rows are headerless substreams (the slice header is assembled
@@ -115,12 +123,14 @@ def entropy_rows_native(p: HevcParams, arrays: dict, qp: int, idr: bool,
         hdr_bits = np.zeros(nch, np.int32)
     else:
         hw = slice_header_bits(p, idr=idr, qp=qp, poc=poc,
-                               ref_poc_delta=ref_poc_delta)
+                               ref_poc_delta=ref_poc_delta,
+                               slice_type=slice_type)
         hdr_bytes = np.frombuffer(hw.to_bytes(), np.uint8)[None].copy()
         hdr_bits = np.array([hw.bit_length], np.int32)
     stride = hdr_bytes.shape[1]
 
-    ctx, off = build_slice_contexts(qp, init_type=0 if idr else 1)
+    ctx, off = build_slice_contexts(qp, init_type=0 if idr else
+                                    (2 if is_b else 1))
     offs = np.array([off[k] for k in _NATIVE_OFF_ORDER], np.int32)
 
     cap = max(1 << 16, nch * ncw * 768 + nch * (stride + 16))
@@ -133,9 +143,16 @@ def entropy_rows_native(p: HevcParams, arrays: dict, qp: int, idr: bool,
         if sao.shape != (nch, ncw, 3, 6):
             raise ValueError(f"SAO parameters {sao.shape}, need "
                              f"{(nch, ncw, 3, 6)}")
+    split = None
+    if p.tu_split_inter:
+        split = np.ascontiguousarray(arrays["tu_split"], np.uint8)
+        if split.shape != (nch, ncw):
+            raise ValueError(f"TU split flags {split.shape}, need "
+                             f"{(nch, ncw)}")
     total = lib.hevc_entropy_rows(
-        nch, ncw, int(idr), 0, int(p.tiles),   # is_b = 0
-        0, None,                               # no TU split
+        nch, ncw, int(idr), int(is_b), int(p.tiles),
+        int(p.tu_split_inter),
+        None if split is None else split.ctypes.data_as(ctypes.c_void_p),
         None if sao is None else sao.ctypes.data_as(ctypes.c_void_p),
         hdr_bytes.ctypes.data_as(ctypes.c_void_p),
         hdr_bits.ctypes.data_as(ctypes.c_void_p), stride,
@@ -159,5 +176,6 @@ def entropy_rows_native(p: HevcParams, arrays: dict, qp: int, idr: bool,
         res.append(out[pos:pos + sz].tobytes())
         pos += sz
     if p.tiles:
-        return [_assemble_tiles(p, res, qp, idr, poc, ref_poc_delta)]
+        return [_assemble_tiles(p, res, qp, idr, poc, ref_poc_delta,
+                                slice_type)]
     return res

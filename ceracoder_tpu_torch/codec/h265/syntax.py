@@ -1,18 +1,19 @@
 """HEVC (H.265 / ISO 23008-2) high-level syntax writers.
 
 NAL framing (spec 7.3.1.2: 2-byte header), profile_tier_level, VPS /
-SPS / PPS, and the slice segment header for IDR I-slices. Configured
+SPS / PPS, and the slice segment header for I, P and B slices. Configured
 for the framework's minimal-but-legal all-intra operating point first
 (Main profile, 4:2:0 8-bit, PCM enabled), widened as residual coding
 lands. Replaces the parameter-set generation inside the reference's
 external HEVC encoder elements (reference: pipeline/ *h265*;
 SURVEY.md §2.2).
 
-Copy of ceracoder_tpu/codec/h265/syntax.py, cut to the port's one
-operating point: the port keeps its own copy so that it imports nothing
-of the JAX package. That point is low-delay I/P (no reordering, one
-reference), no PCM, no inter TU split, in-loop deblocking on, SAO
-optional, and one tile per CTB row in a single slice.
+Copy of ceracoder_tpu/codec/h265/syntax.py, cut to the port's
+operating points: the port keeps its own copy so that it imports
+nothing of the JAX package. Those are low-delay I/P or IBPBP (one
+non-reference B between references), no PCM, the inter TU split
+optional, in-loop deblocking on, SAO optional, and one tile per CTB row
+in a single slice.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from dataclasses import dataclass
 from ceracoder_tpu_torch.codec.bitwriter import BitWriter, emulation_prevent
 
 # NAL unit types (spec Table 7-1)
+NAL_TRAIL_N = 0
 NAL_TRAIL_R = 1
 NAL_IDR_W_RADL = 19
 NAL_VPS = 32
@@ -66,8 +68,14 @@ class HevcParams:
     log2_min_cb: int = 4
     log2_min_tb: int = 2
     log2_max_tb: int = 4
+    # B-frame support: decoder reorder depth and DPB size (0 / 1 for
+    # low-delay I/P streams; 1 / 2 with one B between references)
+    max_reorder: int = 0
+    max_dpb_minus1: int = 1
     # sample adaptive offset (frame post-pass after deblocking)
     sao: bool = False
+    # RD-chosen TU split for inter CUs (4x8x8 luma + 4x4 chroma)
+    tu_split_inter: bool = False
 
     @property
     def tiles(self) -> bool:
@@ -100,8 +108,8 @@ def write_vps(p: HevcParams) -> bytes:
     w.u(0xFFFF, 16)  # vps_reserved_0xffff_16bits
     profile_tier_level(w)
     w.flag(1)       # vps_sub_layer_ordering_info_present_flag
-    w.ue(1)         # vps_max_dec_pic_buffering_minus1[0]
-    w.ue(0)         # vps_max_num_reorder_pics[0]
+    w.ue(p.max_dpb_minus1)  # vps_max_dec_pic_buffering_minus1[0]
+    w.ue(p.max_reorder)     # vps_max_num_reorder_pics[0]
     w.ue(0)         # vps_max_latency_increase_plus1[0]
     w.u(0, 6)       # vps_max_layer_id
     w.ue(0)         # vps_num_layer_sets_minus1
@@ -136,14 +144,15 @@ def write_sps(p: HevcParams) -> bytes:
     w.ue(0)         # bit_depth_chroma_minus8
     w.ue(4)         # log2_max_pic_order_cnt_lsb_minus4 (POC 8 bits)
     w.flag(1)       # sps_sub_layer_ordering_info_present_flag
-    w.ue(1)         # sps_max_dec_pic_buffering_minus1[0]
-    w.ue(0)         # sps_max_num_reorder_pics[0]
+    w.ue(p.max_dpb_minus1)  # sps_max_dec_pic_buffering_minus1[0]
+    w.ue(p.max_reorder)     # sps_max_num_reorder_pics[0]
     w.ue(0)         # sps_max_latency_increase_plus1[0]
     w.ue(p.log2_min_cb - 3)                 # log2_min_luma_cb_size_minus3
     w.ue(p.log2_ctb - p.log2_min_cb)        # log2_diff_max_min_cb
     w.ue(p.log2_min_tb - 2)                 # log2_min_tb_size_minus2
     w.ue(p.log2_max_tb - p.log2_min_tb)     # log2_diff_max_min_tb
-    w.ue(0)         # max_transform_hierarchy_depth_inter
+    w.ue(1 if p.tu_split_inter else 0)
+    #               ^ max_transform_hierarchy_depth_inter
     w.ue(0)         # max_transform_hierarchy_depth_intra
     w.flag(0)       # scaling_list_enabled_flag
     w.flag(0)       # amp_enabled_flag
@@ -205,33 +214,43 @@ def write_pps(p: HevcParams) -> bytes:
 def slice_header_bits(p: HevcParams, idr: bool = True,
                       qp: int | None = None, poc: int = 0,
                       ref_poc_delta: int = 1,
+                      slice_type: str | None = None,
                       tile_sizes=None) -> BitWriter:
     """The picture's slice segment header (spec 7.3.6.1) for an IDR
-    I-slice or a TRAIL_R P-slice referencing ``ref_poc_delta`` back;
-    ``tile_sizes`` are the coded sizes of tiles 0..N-2 (entry points).
-    The caller appends the CABAC slice data."""
+    I-slice, a TRAIL_R P-slice referencing ``ref_poc_delta`` back, or
+    (``slice_type="B"``) a TRAIL_N B-slice also referencing the next
+    POC; ``tile_sizes`` are the coded sizes of tiles
+    0..N-2 (entry points). The caller appends the CABAC slice data."""
     qp = p.qp if qp is None else qp
+    st = slice_type or ("I" if idr else "P")
     w = BitWriter()
     w.flag(1)       # first_slice_segment_in_pic_flag
     if idr:
         w.flag(0)   # no_output_of_prior_pics_flag
     w.ue(0)         # slice_pic_parameter_set_id
-    w.ue(2 if idr else 1)   # slice_type: I / P
+    w.ue({"B": 0, "P": 1, "I": 2}[st])   # slice_type
     if not idr:
         # log2_max_pic_order_cnt_lsb_minus4 = 4 in the SPS -> 8 bits
         w.u(poc & 0xFF, 8)  # slice_pic_order_cnt_lsb
         w.flag(0)           # short_term_ref_pic_set_sps_flag
-        # st_ref_pic_set(0): one past reference
+        # st_ref_pic_set(0): one past reference (+ one future for B)
         w.ue(1)             # num_negative_pics
-        w.ue(0)             # num_positive_pics
+        w.ue(1 if st == "B" else 0)   # num_positive_pics
         w.ue(ref_poc_delta - 1)   # delta_poc_s0_minus1[0]
         w.flag(1)           # used_by_curr_pic_s0_flag[0]
+        if st == "B":
+            # delta_poc_s1_minus1[0]: the forward reference is the
+            # next POC (one B between references)
+            w.ue(0)
+            w.flag(1)       # used_by_curr_pic_s1_flag[0]
         # (no temporal MVP flag: sps_temporal_mvp_enabled_flag = 0)
     if p.sao:
         w.flag(1)           # slice_sao_luma_flag
         w.flag(1)           # slice_sao_chroma_flag
     if not idr:
         w.flag(0)           # num_ref_idx_active_override_flag
+        if st == "B":
+            w.flag(0)       # mvd_l1_zero_flag
         w.ue(3)             # five_minus_max_num_merge_cand -> 2 cands
     # (no deblocking override)
     w.se(qp - 26)   # slice_qp_delta

@@ -2,7 +2,9 @@
 transforms, quantization, motion search and compensation, deblocking,
 level compaction and the packed transfer rows.
 
-Port of the IDR + low-delay-P run path of ceracoder_tpu/ops/h265.py.
+Port of the run path of ceracoder_tpu/ops/h265.py: IDR, P and (with
+one B between references) B frames, with or without the inter TU
+split.
 Every array equals the JAX function's (tests/test_torch_h265_ops.py);
 the native entropy stage (codec/h265/rowslice.py) turns them into the
 bitstream. The codec is integer-exact, and so is every op here:
@@ -29,8 +31,12 @@ on a card, in its plain version `_i_frame_cols_ref` on the CPU. SAO is
 plain torch (statistics by scatter-adds in place of the JAX code's
 per-band masked sums).
 
-Not ported here (later slices): the inter TU split, B frames and the
-legacy whole-frame motion search helpers.
+The inter TU split and B frames are plain torch too: the split's
+second transform option (`_code_inter_tus_dev`), the second motion
+search of a B frame and the bi-prediction combine (`_b_frame_core`).
+
+Not ported: the legacy whole-frame motion search helpers, which no
+run path calls.
 """
 
 from __future__ import annotations
@@ -57,6 +63,7 @@ from ceracoder_tpu_torch.codec.h265.tables import (
     INV_QUANT_SCALES,
     LUMA_FILTER,
     QUANT_SCALES,
+    T4,
     T8,
     T16,
     TC_TABLE,
@@ -112,6 +119,17 @@ def _untimed(name: str, fn):
     return fn()
 
 
+def run_frame(kind: str, run, refs):
+    """The default frame hook of encode_run_rows and encode_run_pairs:
+    run() codes the frame. A profiler passes its own hook(kind, run,
+    refs), called once per frame in coding order, which may time the
+    call or give run a stage hook, run(stage); kind is "I", "P" or "B"
+    and refs the frame's reference planes: none for an IDR, (past,) for
+    a P frame, (past, future) for a B frame (chip_smoke.py,
+    profile_hevc.py)."""
+    return run()
+
+
 def _band(taps: np.ndarray, n_in: int, n_out: int) -> np.ndarray:
     """(n_in, n_out) matrix M with M[o + k, o] = taps[k]: x @ M applies
     the filter along x's last axis (output o reads inputs o..o+7)."""
@@ -136,6 +154,7 @@ def _consts(device: torch.device) -> dict:
     return {
         "t16": f64(T16.astype(np.float64)),
         "t8": f64(T8.astype(np.float64)),
+        "t4": f64(T4.astype(np.float64)),
         "h8": f64(h8.astype(np.float64)),
         "qpel_h": f64(hmat),                          # (4, 24, 17)
         "qpel_v": f64(hmat.transpose(0, 2, 1).copy()),  # (4, 17, 24)
@@ -221,6 +240,71 @@ def _code_tu(src, pred, qp: int, t, log2n: int, intra: bool = True):
     rec_res = _inv_transform(_dequantize(lv, qp, log2n), t, log2n)
     rec = (pred + torch.where(cbf[..., None, None], rec_res, 0)).clamp(0, 255)
     return lv, rec
+
+
+def _quads(x):
+    """(..., n, n) -> (..., 4, n/2, n/2), z-order TL/TR/BL/BR."""
+    *lead, n, _ = x.shape
+    h = n // 2
+    return x.reshape(*lead, 2, h, 2, h).transpose(-3, -2).reshape(
+        *lead, 4, h, h)
+
+
+def _unquads(q):
+    """Inverse of _quads."""
+    *lead, _, h, _ = q.shape
+    return q.reshape(*lead, 2, 2, h, h).transpose(-3, -2).reshape(
+        *lead, 2 * h, 2 * h)
+
+
+def _tb_bits_dev(lv):
+    """Estimated bits of each TB: (..., n, n) -> (...) int32, 24 + 6 *
+    nnz + 2 * sum(min(|l|, 8)), and 2 for a TB without levels."""
+    a = lv.abs().flatten(-2)
+    nnz = (a > 0).sum(-1, dtype=I32)
+    bits = 24 + 6 * nnz + 2 * a.clamp(max=8).sum(-1, dtype=I32)
+    return torch.where(nnz == 0, 2, bits)
+
+
+def _code_inter_tus_dev(sy, su, sv, py, pu, pv, qp: int, qp_c: int,
+                        lam: int):
+    """Per CU, single TUs (16x16 luma, 8x8 chroma) or the quadrant split
+    (four 8x8 luma, four 4x4 chroma TUs, coded independently) by the
+    cost 16 * SSD + lam * bits, flag bits 2 and 4; the split only where
+    it costs strictly less. Batched over leading dims. Returns (split,
+    lv_y, lv_u, lv_v, rec_y, rec_u, rec_v), the split's levels and
+    reconstruction stored in place (_unquads)."""
+    c = _consts(sy.device)
+    single = [_code_tu(sy, py, qp, c["t16"], 4, intra=False),
+              _code_tu(su, pu, qp_c, c["t8"], 3, intra=False),
+              _code_tu(sv, pv, qp_c, c["t8"], 3, intra=False)]
+    quads = []
+    for src, pred, t, log2n, q in ((sy, py, c["t8"], 3, qp),
+                                   (su, pu, c["t4"], 2, qp_c),
+                                   (sv, pv, c["t4"], 2, qp_c)):
+        lv, rec = _code_tu(_quads(src), _quads(pred), q, t, log2n,
+                           intra=False)
+        quads.append((_unquads(lv), _unquads(rec)))
+
+    # int32 as the JAX code (qp <= 51): 16 * SSD <= 16 * (256 + 2 * 64)
+    # * 255^2 ~ 4.0e8 and lam * bits <= 74711 * 8740 ~ 6.6e8, so the
+    # sum stays below 2^31
+    def cost(opt, split: bool):
+        ssd = torch.zeros(sy.shape[:-2], dtype=I32, device=sy.device)
+        bits = torch.full(sy.shape[:-2], 4 if split else 2, dtype=I32,
+                          device=sy.device)
+        for (lv, rec), src in zip(opt, (sy, su, sv)):
+            d = src.to(I32) - rec
+            ssd += (d * d).flatten(-2).sum(-1, dtype=I32)
+            bits += (_tb_bits_dev(_quads(lv)).sum(-1, dtype=I32) if split
+                     else _tb_bits_dev(lv))
+        return 16 * ssd + lam * bits
+
+    split = cost(quads, True) < cost(single, False)
+    m = split[..., None, None]
+    lvs = [torch.where(m, b, a) for (b, _), (a, _) in zip(quads, single)]
+    recs = [torch.where(m, b, a) for (_, b), (_, a) in zip(quads, single)]
+    return (split, *lvs, *recs)
 
 
 # ---------------------------------------------------------------------------
@@ -500,10 +584,11 @@ def _motion_luma_dev(cur, ref_pad, pad: int, stage=_untimed):
     return 4 * (mv0 + d_yx) + rel_q, pred14
 
 
-def _mc_chroma_window(ref_c_pad, mv_q, pad: int):
+def _mc_chroma_window(ref_c_pad, mv_q, pad: int, out14: bool = False):
     """Chroma MC from per-CU windows: 4-tap eighth-sample filters
     (spec 8.5.4.2.2.2). ref_c_pad int32 padded by `pad` >= CHROMA_PAD.
-    Returns the (hc, wc) prediction plane."""
+    Returns the (hc, wc) prediction plane; with `out14` the 14-bit
+    intermediates (acc >> 6) that bi-prediction combines."""
     oy = mv_q[..., 0] >> 3                                   # in [-5, 4]
     ox = mv_q[..., 1] >> 3
     e = _window_canvas_dev(ref_c_pad, torch.stack([oy, ox], dim=-1),
@@ -516,24 +601,43 @@ def _mc_chroma_window(ref_c_pad, mv_q, pad: int):
               for m in range(4))                             # (nch,ncw,11,8)
     acc = sum(ty[:, :, None, None, k] * tmp[..., k:k + n, :]
               for k in range(4))                             # (nch,ncw,8,8)
+    if out14:
+        return _unblocks(acc >> 6)
     return _unblocks(((acc + 2048) >> 12).clamp(0, 255))
+
+
+def _bi_combine(p0_14, p1_14):
+    """Default bi-prediction combine (spec 8.5.4.2.3.2, 8-bit) of two
+    14-bit predictions. Casts to int32 first: the sum of two 14-bit
+    values (up to +-61710) would wrap in int16."""
+    return ((p0_14.to(I32) + p1_14 + 64) >> 7).clamp(0, 255)
 
 
 # ---------------------------------------------------------------------------
 # in-loop deblocking (spec 8.7.2)
 # ---------------------------------------------------------------------------
 
-def _edge_bs_dev(is_intra, cbf_l, mv):
-    """Per-CU-edge strengths (vertical edges, horizontal edges)."""
-    def pair(ia, ib, ca, cb, ma, mb):
-        diff = ((ma - mb).abs() >= 4).any(-1)
-        return torch.where(ia | ib, 2,
-                           torch.where(ca | cb | diff, 1, 0)).to(I32)
+def _mv_diff(ma, mb, m1a=None, m1b=None):
+    """Whether two CUs' MVs differ by 4 quarter samples or more in a
+    component, in list 0 or (a B frame's m1a, m1b) in list 1."""
+    diff = ((ma - mb).abs() >= 4).any(-1)
+    if m1a is not None:
+        diff = diff | ((m1a - m1b).abs() >= 4).any(-1)
+    return diff
 
-    bs_v = pair(is_intra[:, :-1], is_intra[:, 1:], cbf_l[:, :-1],
-                cbf_l[:, 1:], mv[:, :-1], mv[:, 1:])
-    bs_h = pair(is_intra[:-1, :], is_intra[1:, :], cbf_l[:-1, :],
-                cbf_l[1:, :], mv[:-1, :], mv[1:, :])
+
+def _edge_bs_dev(is_intra, cbf_l, mv, mv1=None):
+    """Per-CU-edge strengths (vertical edges, horizontal edges); mv1 a
+    B frame's list-1 MVs."""
+    def pair(a, b):
+        m1 = (None, None) if mv1 is None else (mv1[a], mv1[b])
+        diff = _mv_diff(mv[a], mv[b], *m1)
+        return torch.where(is_intra[a] | is_intra[b], 2,
+                           torch.where(cbf_l[a] | cbf_l[b] | diff, 1, 0)
+                           ).to(I32)
+
+    bs_v = pair((slice(None), slice(None, -1)), (slice(None), slice(1, None)))
+    bs_h = pair(slice(None, -1), slice(1, None))
     return bs_v, bs_h
 
 
@@ -645,11 +749,12 @@ def _nnz8_map_dev(luma_lv, cbf_l, tu_split):
     return out.transpose(1, 2).reshape(2 * nch, 2 * ncw)
 
 
-def _seg_bs_dev(ii_a, ii_b, mv_a, mv_b, nz_pair):
-    """Per-8-sample-segment luma strengths: per-CU inputs (nch, E),
-    nz_pair per segment (2nch, E); returns (2nch, E)."""
+def _seg_bs_dev(ii_a, ii_b, mv_a, mv_b, m1a, m1b, nz_pair):
+    """Per-8-sample-segment luma strengths: per-CU inputs (nch, E), the
+    list-1 MVs m1a, m1b or None, nz_pair per segment (2nch, E); returns
+    (2nch, E)."""
     ii = (ii_a | ii_b).repeat_interleave(2, dim=0)
-    mvd = ((mv_a - mv_b).abs() >= 4).any(-1).repeat_interleave(2, dim=0)
+    mvd = _mv_diff(mv_a, mv_b, m1a, m1b).repeat_interleave(2, dim=0)
     return torch.where(ii, 2, torch.where(nz_pair | mvd, 1, 0)).to(I32)
 
 
@@ -699,9 +804,11 @@ def _deblock_axis(y, u, v, bs, bs_seg, int_bs, qp: int, nblk: int):
 
 
 def deblock_frame_dev(rec_y, rec_u, rec_v, is_intra, cbf_l, mv, qp: int,
-                      tu_split=None, luma_lv=None):
+                      mv1=None, tu_split=None, luma_lv=None):
     """HEVC deblock post-pass (vertical edges over the whole picture,
-    then horizontal edges on the result). tu_split + luma_lv (both or
+    then horizontal edges on the result). mv1 holds a B frame's list-1
+    MVs: an edge is bS 1 where either list's MVs differ by 4 quarter
+    samples or more. tu_split + luma_lv (both or
     neither) enable per-quadrant boundary strengths and the interior
     8-aligned TU edges of split CUs; without them no CU is split: each
     8x8 quadrant takes its CU's cbf, and the interior pass (which would
@@ -713,12 +820,15 @@ def deblock_frame_dev(rec_y, rec_u, rec_v, is_intra, cbf_l, mv, qp: int,
         nnz8 = (cbf_l != 0).repeat_interleave(2, 0).repeat_interleave(2, 1)
     else:
         nnz8 = _nnz8_map_dev(luma_lv, cbf_l, tu_split)
-    bs_v, bs_h = _edge_bs_dev(is_intra, cbf_l, mv)
+    bs_v, bs_h = _edge_bs_dev(is_intra, cbf_l, mv, mv1)
 
-    def seg_and_int(ii, mvx, nnz8x, splitx, n):
+    def seg_and_int(ii, mvx, m1x, nnz8x, splitx, n):
         if n > 1:
+            m1 = ((None, None) if m1x is None
+                  else (m1x[:, :-1], m1x[:, 1:]))
             segs = _seg_bs_dev(ii[:, :-1], ii[:, 1:], mvx[:, :-1],
-                               mvx[:, 1:], nnz8x[:, 1:-1:2] | nnz8x[:, 2::2])
+                               mvx[:, 1:], *m1,
+                               nnz8x[:, 1:-1:2] | nnz8x[:, 2::2])
         else:
             segs = torch.zeros((2 * ii.shape[0], 0), dtype=I32,
                                device=ii.device)
@@ -728,10 +838,12 @@ def deblock_frame_dev(rec_y, rec_u, rec_v, is_intra, cbf_l, mv, qp: int,
         sp2 = splitx.repeat_interleave(2, dim=0)
         return segs, (sp2 & nz_int).to(I32)
 
-    seg_v, int_v = seg_and_int(is_intra, mv, nnz8, tu_split, ncw)
+    seg_v, int_v = seg_and_int(is_intra, mv, mv1, nnz8, tu_split, ncw)
     y, u, v = _deblock_axis(y, u, v, bs_v, seg_v, int_v, qp, ncw)
 
-    seg_h, int_h = seg_and_int(is_intra.T, mv.transpose(0, 1), nnz8.T,
+    seg_h, int_h = seg_and_int(is_intra.T, mv.transpose(0, 1),
+                               None if mv1 is None else mv1.transpose(0, 1),
+                               nnz8.T,
                                None if tu_split is None else tu_split.T,
                                nch)
     yt, ut, vt = _deblock_axis(y.T, u.T, v.T, bs_h.T, seg_h, int_h, qp, nch)
@@ -961,28 +1073,68 @@ def _p_motion(y, ref_y_pad, ref_u_pad, ref_v_pad, stage=_untimed):
     return mv_q, _unblocks(_pred8_from14(pred14)), pred_u, pred_v
 
 
-def _p_tail(y, u, v, mv_q, pred_y, pred_u, pred_v, qp: int, qp_c: int):
-    """A P frame from its motion stage's output: residuals, the intra
-    fallback, and the MVs (0 on intra CTBs)."""
-    outs = _inter_frame_tail(y, u, v, pred_y, pred_u, pred_v, qp, qp_c)
-    outs["mv"] = torch.where(outs["is_intra"][..., None], 0, mv_q)
+def _b_motion(y, refs0, refs1, stage=_untimed):
+    """A B frame's motion stage over its two padded references (_pad_ref;
+    list 0 the past, list 1 the future picture): per list the luma
+    search + 14-bit MC and the chroma MC at 14 bits, then the
+    bi-prediction combine. Returns (mv0, mv1, pred_y, pred_u, pred_v)."""
+    y32 = y.to(I32)
+    mvs, p14 = [], []
+    for ref_y_pad, ref_u_pad, ref_v_pad in (refs0, refs1):
+        mv_q, luma14 = _motion_luma_dev(y32, ref_y_pad, LUMA_SRC_PAD, stage)
+        chroma14 = stage("chroma_mc", lambda: tuple(
+            _mc_chroma_window(r, mv_q, CHROMA_PAD, out14=True)
+            for r in (ref_u_pad, ref_v_pad)))
+        mvs.append(mv_q)
+        p14.append((_unblocks(luma14), *chroma14))
+    preds = stage("bi_combine", lambda: tuple(
+        _bi_combine(a, b) for a, b in zip(*p14)))
+    return (*mvs, *preds)
+
+
+def _p_tail(y, u, v, mv_q, pred_y, pred_u, pred_v, qp: int, qp_c: int,
+            tu_split: bool = False, mv1=None):
+    """An inter frame from its motion stage's output: residuals (with
+    `tu_split` the TU split's choice), the intra fallback, and the MVs
+    (0 on intra CTBs): "mv", and for a B frame "mv1" from mv1."""
+    outs = _inter_frame_tail(y, u, v, pred_y, pred_u, pred_v, qp, qp_c,
+                             tu_split)
+    intra = outs["is_intra"][..., None]
+    outs["mv"] = torch.where(intra, 0, mv_q)
+    if mv1 is not None:
+        outs["mv1"] = torch.where(intra, 0, mv1)
     return outs
 
 
 def _p_frame_core(y, u, v, ref_y, ref_u, ref_v, qp: int, qp_c: int,
-                  stage=_untimed):
+                  stage=_untimed, tu_split: bool = False):
     """P frame against the (unpadded, uint8) reference planes: stages
     "motion" and "p_tail"."""
     mc = stage("motion", lambda: _p_motion(y, *_pad_ref(ref_y, ref_u,
                                                          ref_v)))
-    return stage("p_tail", lambda: _p_tail(y, u, v, *mc, qp, qp_c))
+    return stage("p_tail", lambda: _p_tail(y, u, v, *mc, qp, qp_c,
+                                           tu_split))
+
+
+def _b_frame_core(y, u, v, past, fut, qp: int, qp_c: int,
+                  stage=_untimed, tu_split: bool = False):
+    """B frame bi-predicted from the past (list 0) and future (list 1)
+    reference planes (unpadded uint8 triples): stages "motion" (both
+    searches and the combine) and "b_tail". Adds "mv1", the list-1 MVs
+    (0 on intra CTBs), to the P frame's outputs."""
+    mv0, mv1, *preds = stage("motion", lambda: _b_motion(
+        y, _pad_ref(*past), _pad_ref(*fut)))
+    return stage("b_tail", lambda: _p_tail(y, u, v, mv0, *preds, qp, qp_c,
+                                           tu_split, mv1=mv1))
 
 
 def _inter_frame_tail(y, u, v, pred_y, pred_u, pred_v, qp: int,
-                      qp_c: int):
+                      qp_c: int, tu_split: bool = False):
     """Inter residuals + fully parallel per-CTB intra fallback. The
     source planes may stay uint8: they enter only differences with the
-    int32 predictions, which promote them.
+    int32 predictions, which promote them. With `tu_split` each CU's
+    inter residual takes the TU split where it costs less
+    (_code_inter_tus_dev, lambda SAO_LAMBDA[qp]).
 
     Intra fallback is only allowed when the left neighbour codes inter
     (an encoder-side choice; the bitstream stays legal), so every intra
@@ -998,12 +1150,18 @@ def _inter_frame_tail(y, u, v, pred_y, pred_u, pred_v, qp: int,
 
     inter_sad = _satd8_frame(y - pred_y)                 # (nch, ncw)
     sy, su, sv = _col_view(y, CTB), _col_view(u, CTB // 2), _col_view(v, CTB // 2)
-    ilv_y, irec_y = _code_tu(sy, _col_view(pred_y, CTB), qp, t16, 4,
-                             intra=False)
-    ilv_u, irec_u = _code_tu(su, _col_view(pred_u, CTB // 2), qp_c, t8, 3,
-                             intra=False)
-    ilv_v, irec_v = _code_tu(sv, _col_view(pred_v, CTB // 2), qp_c, t8, 3,
-                             intra=False)
+    inter = (_col_view(pred_y, CTB), _col_view(pred_u, CTB // 2),
+             _col_view(pred_v, CTB // 2))
+    if tu_split:
+        (split_cols, ilv_y, ilv_u, ilv_v, irec_y, irec_u,
+         irec_v) = _code_inter_tus_dev(sy, su, sv, *inter, qp, qp_c,
+                                       SAO_LAMBDA[min(max(qp, 0), 69)])
+    else:
+        split_cols = torch.zeros((ncw, nch), dtype=torch.bool,
+                                 device=y.device)
+        ilv_y, irec_y = _code_tu(sy, inter[0], qp, t16, 4, intra=False)
+        ilv_u, irec_u = _code_tu(su, inter[1], qp_c, t8, 3, intra=False)
+        ilv_v, irec_v = _code_tu(sv, inter[2], qp_c, t8, 3, intra=False)
 
     r = ncw * nch
     sy = sy.reshape(r, CTB, CTB)
@@ -1045,7 +1203,7 @@ def _inter_frame_tail(y, u, v, pred_y, pred_u, pred_v, qp: int,
     return {
         "is_intra": is_intra,
         "mode": torch.where(is_intra, mode, 0),
-        "tu_split": torch.zeros_like(is_intra),
+        "tu_split": split_cols.T & ~is_intra,
         "luma_lv": sel(alv_y, ilv_y).transpose(0, 1),
         "cb_lv": sel(alv_u, ilv_u).transpose(0, 1),
         "cr_lv": sel(alv_v, ilv_v).transpose(0, 1),
@@ -1254,10 +1412,11 @@ def sao_frame_dev(src_planes, rec_planes, qp: int):
 # run loop and the packed transfer rows
 # ---------------------------------------------------------------------------
 
-def run_pack_layout(n_ctb: int, chunk: int = LEVEL_CHUNK) -> dict:
+def run_pack_layout(n_ctb: int, chunk: int = LEVEL_CHUNK,
+                    with_mv1: bool = False) -> dict:
     """Byte offsets of each section in one frame's packed transfer row
-    (_pack_run_streams). Sections are padded to 4-byte boundaries so
-    host numpy views land aligned."""
+    (_pack_run_streams); `with_mv1` for a B frame's row. Sections are
+    padded to 4-byte boundaries so host numpy views land aligned."""
     def pad4(x):
         return -(-x // 4) * 4
 
@@ -1265,6 +1424,8 @@ def run_pack_layout(n_ctb: int, chunk: int = LEVEL_CHUNK) -> dict:
     off["counts"] = off["meta"] + pad4(n_ctb)
     off["mv"] = off["counts"] + pad4(2 * n_ctb)
     off["lv0"] = off["mv"] + pad4(2 * n_ctb)
+    if with_mv1:
+        off["mv1"], off["lv0"] = off["lv0"], off["lv0"] + pad4(2 * n_ctb)
     off["total"] = off["lv0"] + 4 * chunk
     return off
 
@@ -1273,12 +1434,13 @@ def _pack_run_streams(d, n: int, chunk: int = LEVEL_CHUNK) -> dict:
     """One uint8 transfer row per frame, in the JAX package's byte
     layout (run_pack_layout): nnz int32 | meta uint8 (bit7 is_intra,
     bit6 tu_split, low bits intra mode) | per-CTB nonzero level counts
-    uint16 | mv int8 pairs | level chunk 0 as interleaved (pos, val)
-    int16. d holds the frames' stacked arrays (leading axis n). Returns
-    "packed" (n, total) uint8 and "lv_rest" (n, cap - chunk, 2) int16,
-    the level entries past chunk 0. Multi-byte fields are built in
-    their own signed types and reinterpreted as bytes (torch's CPU
-    build has no uint16 arithmetic)."""
+    uint16 | mv int8 pairs | [a B frame's mv1 int8 pairs, where d has
+    "mv1"] | level chunk 0 as interleaved (pos, val) int16. d holds the
+    frames' stacked arrays (leading axis n). Returns "packed" (n, total)
+    uint8 and "lv_rest" (n, cap - chunk, 2) int16, the level entries
+    past chunk 0. Multi-byte fields are built in their own signed types
+    and reinterpreted as bytes (torch's CPU build has no uint16
+    arithmetic)."""
     nch, ncw = d["is_intra"].shape[1:3]
     n_ctb = nch * ncw
 
@@ -1295,11 +1457,13 @@ def _pack_run_streams(d, n: int, chunk: int = LEVEL_CHUNK) -> dict:
     counts = d["counts"].reshape(n, n_ctb, -1).sum(-1, dtype=I32)
     pv = torch.stack([d["pos"].reshape(n, -1), d["val"].reshape(n, -1)],
                      dim=-1)                                 # (n, cap, 2)
+    mvs = [pad4(u8(d[k].to(torch.int8).reshape(n, -1)))
+           for k in ("mv", "mv1") if k in d]
     packed = torch.cat([
         u8(d["nnz"].to(I32).reshape(n, 1)),
         pad4(meta.reshape(n, n_ctb)),
         pad4(u8(counts.to(torch.int16))),
-        pad4(u8(d["mv"].to(torch.int8).reshape(n, -1))),
+        *mvs,
         u8(pv[:, :chunk])], dim=1)
     return {"packed": packed, "lv_rest": pv[:, chunk:]}
 
@@ -1322,11 +1486,13 @@ def level_capacity(n_ctb: int, idr: bool,
 
 
 def _pack_frame(o, cap: int, chunk: int) -> dict:
-    """One frame's transfer row (_pack_run_streams) from its core's
-    outputs, and its dense int16 levels (the exact fallback)."""
+    """One frame's transfer row (_pack_run_streams; with a B frame's
+    "mv1") from its core's outputs, and its dense int16 levels (the
+    exact fallback)."""
     pos, val, counts, nnz = _compact_levels(o["luma_lv"], o["cb_lv"],
                                             o["cr_lv"], cap)
-    row = {k: o[k][None] for k in ("is_intra", "tu_split", "mode", "mv")}
+    row = {k: o[k][None] for k in ("is_intra", "tu_split", "mode", "mv",
+                                   "mv1") if k in o}
     row.update(pos=pos[None], val=val[None], counts=counts[None],
                nnz=nnz[None])
     out = _pack_run_streams(row, 1, chunk)
@@ -1337,23 +1503,35 @@ def _pack_frame(o, cap: int, chunk: int) -> dict:
 
 def encode_frame_row(y, u, v, ref, idr: bool, qp: int, qp_c: int,
                      cap: int, chunk: int, stage=_untimed,
-                     sao: bool = False) -> dict:
-    """One frame on the device: its core (stage "intra_core", or
-    "motion" and "p_tail" against the reference planes `ref`), the
-    deblock ("deblock"), with `sao` the SAO estimate and filter ("sao")
-    and its transfer row ("compact_pack"). Returns "packed" (1, total)
-    uint8 and "lv_rest" (see _pack_run_streams), "dense_lv" (the
-    frame's luma, cb and cr levels as int16, the exact fallback when
-    the sparse stream overflows), "recon" (the filtered uint8 planes,
-    the next frame's reference) and with `sao` "sao", the (nch, ncw, 3,
-    6) int32 SAO parameters."""
+                     sao: bool = False, tu_split: bool = False,
+                     fut=None) -> dict:
+    """One frame on the device: its core (stage "intra_core"; "motion"
+    and "p_tail" against the reference planes `ref`; or, given the
+    future reference planes `fut`, a B frame's "motion" and "b_tail"
+    against `ref` and `fut`), the deblock ("deblock"), with `sao` the
+    SAO estimate and filter ("sao") and its transfer row
+    ("compact_pack"). `tu_split` lets the inter frames' CUs take the TU
+    split. Returns "packed" (1, total) uint8 and "lv_rest" (see
+    _pack_run_streams), "dense_lv" (the frame's luma, cb and cr levels
+    as int16, the exact fallback when the sparse stream overflows),
+    "recon" (the filtered uint8 planes, a P frame's the next frame's
+    reference) and with `sao` "sao", the (nch, ncw, 3, 6) int32 SAO
+    parameters."""
     if idr:
         o = stage("intra_core", lambda: _i_frame_core(y, u, v, qp, qp_c))
+    elif fut is None:
+        o = _p_frame_core(y, u, v, *ref, qp, qp_c, stage=stage,
+                          tu_split=tu_split)
     else:
-        o = _p_frame_core(y, u, v, *ref, qp, qp_c, stage=stage)
+        o = _b_frame_core(y, u, v, ref, fut, qp, qp_c, stage=stage,
+                          tu_split=tu_split)
+    # an IDR and a frame without the split have no split CU: the deblock
+    # then skips the interior TU edges, which it would not filter
+    split = ({"tu_split": o["tu_split"], "luma_lv": o["luma_lv"]}
+             if tu_split and not idr else {})
     recon = stage("deblock", lambda: deblock_frame_dev(
         *o["recon"], o["is_intra"], (o["luma_lv"] != 0).flatten(2).any(-1),
-        o["mv"], qp))
+        o["mv"], qp, mv1=o.get("mv1"), **split))
     if sao:
         params, recon = stage("sao", lambda: sao_frame_dev((y, u, v), recon,
                                                            qp))
@@ -1364,8 +1542,20 @@ def encode_frame_row(y, u, v, ref, idr: bool, qp: int, qp_c: int,
     return out
 
 
+def _frame_run(planes, i: int, ref, idr: bool, qp: int, qp_c: int,
+               cap: int, chunk: int, sao: bool, tu_split: bool, fut=None):
+    """The run(stage) of frame i of a run (run_frame): its planes
+    (stage "source"), then encode_frame_row."""
+    def run(stage=_untimed):
+        return encode_frame_row(*stage("source", lambda: planes(i)), ref,
+                                idr, qp, qp_c, cap, chunk, stage=stage,
+                                sao=sao, tu_split=tu_split, fut=fut)
+    return run
+
+
 def encode_run_rows(planes, idr_flags, qps, qpcs, ref, caps, chunks,
-                    sao: bool = False) -> list[dict]:
+                    sao: bool = False, tu_split: bool = False,
+                    frame=run_frame) -> list[dict]:
     """Encode a run of frames on the device, in order, carrying the
     filtered reference from frame to frame.
 
@@ -1373,13 +1563,48 @@ def encode_run_rows(planes, idr_flags, qps, qpcs, ref, caps, chunks,
     size; ref is the reference before the run (uint8 planes); per frame
     f: idr_flags[f], qps[f], qpcs[f] and the sparse-level capacity
     caps[f] and chunk-0 size chunks[f] of its packed row; `sao` runs
-    the SAO stage after each deblock. Returns encode_frame_row's dict
-    per frame. Port of the JAX encode_run_rows and
-    encode_idr_rows/_idr_tail."""
+    the SAO stage after each deblock, `tu_split` lets P frames take the
+    TU split; `frame` is the frame hook (run_frame). Returns
+    encode_frame_row's dict per frame. Port of the JAX encode_run_rows
+    and encode_idr_rows/_idr_tail."""
     outs = []
     for f, idr in enumerate(idr_flags):
-        out = encode_frame_row(*planes(f), ref, bool(idr), int(qps[f]),
-                               int(qpcs[f]), caps[f], chunks[f], sao=sao)
+        idr = bool(idr)
+        out = frame("I" if idr else "P",
+                    _frame_run(planes, f, ref, idr, int(qps[f]),
+                               int(qpcs[f]), caps[f], chunks[f], sao,
+                               tu_split),
+                    () if idr else (ref,))
         ref = out["recon"]
         outs.append(out)
+    return outs
+
+
+def encode_run_pairs(planes, npair: int, qps, qpcs, ref, cap: int,
+                     sao: bool = False, tu_split: bool = False,
+                     frame=run_frame) -> list[tuple[dict, dict]]:
+    """Encode an IBPBP segment's (B, P) display pairs on the device.
+
+    planes(i) gives display frame i's (y, u, v) device planes of the
+    segment (pair k: the B frame 2k, the P frame 2k + 1), qps[i] and
+    qpcs[i] its QPs; ref is the reference before the segment. In each
+    pair the P frame codes first against the carried reference, then
+    the B frame bi-predicts between that reference and the P frame's
+    filtered reconstruction, which is carried on (a B frame is never a
+    reference). Both rows hold `cap` sparse levels in LEVEL_CHUNK
+    chunks; `frame` is the frame hook (run_frame). Returns (P, B)
+    encode_frame_row dicts per pair. Port of the JAX encode_run_pairs
+    (a lax.scan there, a loop here)."""
+    outs = []
+    for k in range(npair):
+        ib, ip = 2 * k, 2 * k + 1
+        out_p = frame("P", _frame_run(planes, ip, ref, False, int(qps[ip]),
+                                      int(qpcs[ip]), cap, LEVEL_CHUNK, sao,
+                                      tu_split), (ref,))
+        fut = out_p["recon"]
+        out_b = frame("B", _frame_run(planes, ib, ref, False, int(qps[ib]),
+                                      int(qpcs[ib]), cap, LEVEL_CHUNK, sao,
+                                      tu_split, fut=fut), (ref, fut))
+        ref = fut
+        outs.append((out_p, out_b))
     return outs

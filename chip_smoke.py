@@ -26,7 +26,9 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    DeviceTestPatternSource(1920, 1088, texture=6), 3 runs of 10 frames
    through encode_run_async; kernel launch counts are set to 0 just
    before and read just after (K1 once per frame, K2 once per frame,
-   K3 once per IDR); every main-path phase below does the same;
+   K3 once per IDR); every main-path phase below does the same; prints
+   each run's seconds, split into encode_run_async, the results and
+   the last synchronization;
 5. GPU equals CPU: the same port at 320x192 (6 frames, gop 4, two
    runs) on cuda and cpu gives byte-identical streams, and so do the
    first IDR and P frame at 1080p;
@@ -86,7 +88,20 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    test pattern, 3 runs of 10 frames; the checks of phase 6 (K4 once per
    IDR, the IDR under 1,500 launches with SAO's), the share of CTBs
    that take SAO
-   (above 0), then GPU == CPU as phase 7 with SAO on.
+   (above 0), then GPU == CPU as phase 7 with SAO on;
+14. HEVC B frames + TU split: H265DeviceEncoder(1920, 1088, qp=30,
+   gop=60, bframes=1, tu_split=True) on the device test pattern, 3 runs
+   of 10 frames through encode_run_b_async (the first run an IDR, 4
+   (B, P) pairs and a P tail, the next two 5 pairs each); checks the
+   coding order, kinds and POCs, the NAL types (IDR_W_RADL, TRAIL_R,
+   TRAIL_N), the recon shapes, that K4 is launched once per IDR and no
+   other kernel, and, off the unpacked rows, that P and B frames take
+   the TU split and B frames carry list-1 MVs unlike list 0; one more
+   pair under torch.profiler (launches and device ms of its TU-split P
+   and of its B frame); prints frames/s, bytes per I, P and B frame,
+   fallback frames and peak device memory; then GPU == CPU at 320x192
+   (6 frames, gop 4) for push_frame/flush and for encode_run_b_async
+   in two runs, and for the first 1080p IDR and pair.
 
 The native libraries (native/src: the HEVC entropy stage, the H.264
 CABAC row coder, the balancer core and, where the libavcodec headers
@@ -1018,15 +1033,19 @@ def phase_main_path(tag: str) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    frames, run_secs = [], []
+    frames, run_secs, run_split = [], [], []
     t0 = time.perf_counter()
     for r in range(runs):
         t = time.perf_counter()
         pend = enc.encode_run_async(
             source=src, indices=range(r * run_len, (r + 1) * run_len))
+        t_launch = time.perf_counter()
         frames += [p.result() for p in pend]
+        t_result = time.perf_counter()
         torch.cuda.synchronize()
         run_secs.append(time.perf_counter() - t)
+        run_split.append((t_launch - t, t_result - t_launch,
+                          time.perf_counter() - t_result))
     secs = time.perf_counter() - t0
     counts = read_launches()
     launches = counts["merge_windows"]
@@ -1047,7 +1066,7 @@ def phase_main_path(tag: str) -> dict:
     out = {
         "frames": nf, "seconds": secs, "fps": nf / secs,
         "fps_runs_2_3": 2 * run_len / sum(run_secs[1:]),
-        "run_seconds": run_secs,
+        "run_seconds": run_secs, "run_launch_result_sync_seconds": run_split,
         "bytes_idr": sizes[0], "bytes_p_mean": sum(sizes[1:]) / (nf - 1),
         "fallback_frames": enc.fallback_frames, "k1_launches": launches,
         "launches": counts,
@@ -1057,7 +1076,10 @@ def phase_main_path(tag: str) -> dict:
     print(f"{tag} main path 1080p CAVLC: {nf} frames in {secs:.3f} s "
           f"= {out['fps']:.3f} frames/s (runs 2-3: "
           f"{out['fps_runs_2_3']:.3f} frames/s; per run "
-          f"{', '.join(f'{s:.3f}' for s in run_secs)} s)")
+          f"{', '.join(f'{s:.3f}' for s in run_secs)} s; of each, "
+          f"encode_run_async / the results / the last sync: "
+          f"{'; '.join(' / '.join(f'{x:.3f}' for x in r) for r in run_split)}"
+          f" s)")
     print(f"{tag} main path bytes/frame: IDR {out['bytes_idr']}, P mean "
           f"{out['bytes_p_mean']:.1f}; fallback frames "
           f"{out['fallback_frames']}; kernel launches {counts}; peak device "
@@ -1110,16 +1132,18 @@ def phase_gpu_equals_cpu(tag: str, main: dict) -> None:
 # HEVC main path and GPU-vs-CPU
 # ---------------------------------------------------------------------------
 
-NAL_IDR_W_RADL, NAL_TRAIL_R = 19, 1
+NAL_IDR_W_RADL, NAL_TRAIL_R, NAL_TRAIL_N = 19, 1, 0
 
 
-def check_hevc_frame(data: bytes, idr: bool) -> None:
+def check_hevc_frame(data: bytes, idr: bool, kind: str | None = None) -> None:
     """One frame: a single NAL unit (one slice, a tile per CTB row)
-    behind a 4-byte start code, of the frame's NAL type."""
+    behind a 4-byte start code, of the frame's NAL type (by `kind`, "I",
+    "P" or "B", where given)."""
     check(data.startswith(b"\x00\x00\x00\x01"), "frame lacks a start code")
     nals = data.count(b"\x00\x00\x01")
     check(nals == 1, f"{nals} NAL units, want 1 (tile rows, one slice)")
-    want = NAL_IDR_W_RADL if idr else NAL_TRAIL_R
+    want = ({"I": NAL_IDR_W_RADL, "P": NAL_TRAIL_R, "B": NAL_TRAIL_N}[kind]
+            if kind else NAL_IDR_W_RADL if idr else NAL_TRAIL_R)
     got = (data[4] >> 1) & 0x3F
     check(got == want, f"NAL type {got}, want {want}")
 
@@ -1337,6 +1361,276 @@ def phase_hevc_sao(tag: str) -> dict:
           f"{launches}; peak device memory {peak} B; "
           f"{describe_frame_launches(out)}")
     return out
+
+
+class RowCount:
+    """Per frame that H265DeviceEncoder codes, its slice type, its slice
+    bytes (RBSP) and a copy of its unpacked rows' per-CTB arrays (not
+    the levels), by wrapping the entropy stage's call in
+    codec/h265/device.py; the statistics are taken afterwards, outside
+    the timed runs. totals() counts the CTBs that take the TU split,
+    code intra, (B) carry list-1 MVs unlike list 0, could merge (inter,
+    every list's MV the left inter neighbour's or zero: the native
+    coder's merge candidates) and hold a sub-pel MV component;
+    level_free_bytes() codes the same frames again with every level
+    zeroed: the bytes of the CU syntax alone (skip/merge, modes, MVDs,
+    SAO), the rest being the residual's."""
+
+    def __init__(self):
+        import ceracoder_tpu_torch.codec.h265.device as device
+
+        self.mod, self.real = device, device.entropy_rows_native
+        self.calls = []
+
+        def entropy(p, arrays, qp, idr, *a, slice_type=None, **kw):
+            rbsps = self.real(p, arrays, qp, idr, *a, slice_type=slice_type,
+                              **kw)
+            ctb = {k: np.array(v) for k, v in arrays.items()
+                   if not k.endswith("_lv")}
+            self.calls.append((slice_type or ("I" if idr else "P"),
+                               sum(len(r) for r in rbsps),
+                               (p, ctb, qp, idr, *a), slice_type, kw))
+            return rbsps
+        device.entropy_rows_native = entropy
+
+    @staticmethod
+    def _stats(ctb: dict, is_b: bool) -> dict:
+        mv = ctb["mv"]
+        mv1 = ctb["mv1"] if is_b else np.zeros_like(mv)
+        inter = ~ctb["is_intra"]
+        mvs = np.concatenate([mv, mv1], -1)
+        left = np.zeros_like(inter)
+        left[:, 1:] = inter[:, :-1] & (mvs[:, 1:] == mvs[:, :-1]).all(-1)
+        return {"split": int(ctb["tu_split"].sum()),
+                "intra": int(ctb["is_intra"].sum()),
+                "mv1_differs": int((mv1 != mv).any(-1).sum()) if is_b else 0,
+                "merge": int((inter & (left | (mvs == 0).all(-1))).sum()),
+                "subpel": int((inter & (mvs % 4 != 0).any(-1)).sum())}
+
+    def totals(self, kind: str) -> dict:
+        out = {"frames": 0, "bytes": 0}
+        for k, size, args, _, _ in self.calls:
+            if k != kind:
+                continue
+            out["frames"] += 1
+            out["bytes"] += size
+            for name, n in self._stats(args[1], kind == "B").items():
+                out[name] = out.get(name, 0) + n
+        return out
+
+    def level_free_bytes(self, kind: str) -> int:
+        """The summed slice bytes of the `kind` frames coded again with
+        every level zeroed."""
+        total = 0
+        for k, _, (p, ctb, *rest), slice_type, kw in self.calls:
+            if k == kind:
+                nch, ncw = ctb["is_intra"].shape
+                zeros = {"luma_lv": np.zeros((nch, ncw, 16, 16), np.int16),
+                         "cb_lv": np.zeros((nch, ncw, 8, 8), np.int16),
+                         "cr_lv": np.zeros((nch, ncw, 8, 8), np.int16)}
+                total += sum(len(r) for r in self.real(
+                    p, ctb | zeros, *rest, slice_type=slice_type, **kw))
+        return total
+
+    def close(self):
+        self.mod.entropy_rows_native = self.real
+
+
+def b_coding_order(runs: int, run_len: int, gop: int) -> list:
+    """(poc, kind) of every frame that encode_run_b_async codes from
+    `runs` runs of `run_len` display frames (H265DeviceEncoder's
+    schedule: an IDR where the GOP ends, (B, P) pairs with the P first,
+    a frame without a partner as P)."""
+    order, poc, have_ref = [], 0, False
+    for _ in range(runs):
+        i = 0
+        while i < run_len:
+            if not have_ref or poc >= gop:
+                order.append((0, "I"))
+                poc, have_ref, i = 1, True, i + 1
+                continue
+            npair = 0
+            while (i + 2 * (npair + 1) <= run_len
+                   and poc + 2 * npair <= gop - 2):
+                npair += 1
+            if not npair:
+                order.append((poc, "P"))
+                poc, i = poc + 1, i + 1
+                continue
+            for k in range(npair):
+                order += [(poc + 2 * k + 1, "P"), (poc + 2 * k, "B")]
+            poc, i = poc + 2 * npair, i + 2 * npair
+    return order
+
+
+def pair_frame_launches(enc, src, n: int) -> dict:
+    """CUDA launches and device ms (torch.profiler) of one more (B, P)
+    pair of `enc` (display frames n, n + 1 of `src`), frame by frame:
+    the TU-split P frame, then the B frame between the old reference
+    and the P frame's, each as encode_run_b_async codes it (its frame
+    hook, ops/h265.py: run_frame, wraps each frame's device work in the
+    profiler); then the pair's host rows and entropy stage."""
+    got = {}
+
+    def hook(kind, run, refs):
+        out = []
+        got[kind] = kernel_launches(lambda: out.append(run()))
+        return out[0]
+
+    run = enc.encode_run_b_async(source=src, indices=[n, n + 1],
+                                 frame_hook=hook)
+    for pf, _, _ in run:
+        pf.result()
+    check([kind for _, _, kind in run] == ["P", "B"] and len(got) == 2,
+          f"one more pair coded as {[kind for _, _, kind in run]}")
+    (p_launches, p_ms), (b_launches, b_ms) = got["P"], got["B"]
+    return {"launches_per_split_p_frame": p_launches,
+            "device_ms_per_split_p_frame": p_ms,
+            "launches_per_b_frame": b_launches, "device_ms_per_b_frame": b_ms}
+
+
+def phase_hevc_bframes(tag: str, w: int = 1920, h: int = 1088) -> dict:
+    """HEVC B frames + TU split: H265DeviceEncoder(w, h, qp=30, gop=60,
+    bframes=1, tu_split=True) on the device test pattern, 3 runs of 10
+    frames through encode_run_b_async."""
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+
+    runs, run_len, gop = 3, 10, 60
+    src = DeviceTestPatternSource(w, h, texture=6)
+    enc = H265DeviceEncoder(w, h, qp=30, gop=gop, bframes=1, tu_split=True)
+    count = RowCount()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    items, run_secs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(runs):
+            t = time.perf_counter()
+            run = enc.encode_run_b_async(
+                source=src, indices=range(r * run_len, (r + 1) * run_len))
+            items += [(p.result(), poc, kind) for p, poc, kind in run]
+            torch.cuda.synchronize()
+            run_secs.append(time.perf_counter() - t)
+        secs = time.perf_counter() - t0
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        count.close()
+    nf = runs * run_len
+    order = [(poc, kind) for _, poc, kind in items]
+    check(order == b_coding_order(runs, run_len, gop),
+          f"coding order {order}")
+    check(order[:10] == [(0, "I"), (2, "P"), (1, "B"), (4, "P"), (3, "B"),
+                         (6, "P"), (5, "B"), (8, "P"), (7, "B"), (9, "P")],
+          "run 1: I, 4 pairs, a P tail")
+    for f, _, kind in items:
+        check_hevc_frame(f.data, kind == "I", kind)
+        check(f.keyframe == (kind == "I"), "keyframe flag")
+    rec = items[-1][0].recon
+    check(rec[0].shape == (h, w) and rec[1].shape == (h // 2, w // 2)
+          and rec[2].shape == (h // 2, w // 2), "recon shapes")
+    check(all(f._recon_dev[0].device.type == "cuda" for f, _, _ in items),
+          "recon not on the card")
+    check_hevc_launches(launches, 1)
+    used = {k: count.totals(k) for k in ("P", "B")}
+    check(used["P"]["split"] > 0 and used["B"]["split"] > 0,
+          f"the TU split is taken in no P or no B frame: {used}")
+    check(used["B"]["mv1_differs"] > 0, f"list-1 MVs equal list 0: {used}")
+    frame_launches = pair_frame_launches(enc, src, nf)
+    sizes = {k: [len(f.data) for f, _, kind in items if kind == k]
+             for k in "IPB"}
+    # the slice bytes of the CU syntax alone (levels zeroed) and of the
+    # residual, mean per P and per B frame
+    bits = {k: {"slice": used[k]["bytes"] / used[k]["frames"],
+                "cu_syntax": count.level_free_bytes(k) / used[k]["frames"]}
+            for k in used}
+    for b in bits.values():
+        b["residual"] = b["slice"] - b["cu_syntax"]
+    out = {
+        "frames": nf, "seconds": secs, "fps": nf / secs,
+        "fps_runs_2_3": 2 * run_len / sum(run_secs[1:]),
+        "run_seconds": run_secs, "bytes_idr": sizes["I"][0],
+        "bytes_p_mean": sum(sizes["P"]) / len(sizes["P"]),
+        "bytes_b_mean": sum(sizes["B"]) / len(sizes["B"]),
+        "ctbs": {k: used[k] | {"of": used[k]["frames"] * (h // 16)
+                               * (w // 16)} for k in used},
+        "slice_bytes": bits, "fallback_frames": enc.fallback_frames,
+        "launches": launches,
+        **frame_launches, "peak_mem_bytes": peak,
+        "first_three": b"".join(f.data for f, _, _ in items[:3]),
+    }
+    print(f"{tag} HEVC B frames + TU split {w}x{h}: {nf} frames in {secs:.3f} "
+          f"s = {out['fps']:.3f} frames/s (runs 2-3: "
+          f"{out['fps_runs_2_3']:.3f} frames/s; per run "
+          f"{', '.join(f'{s:.3f}' for s in run_secs)} s)")
+    print(f"{tag} HEVC B frames + TU split bytes/frame: IDR "
+          f"{out['bytes_idr']}, P mean {out['bytes_p_mean']:.1f}, B mean "
+          f"{out['bytes_b_mean']:.1f}; CTBs (split / intra / list-1 MV "
+          f"unlike list 0 / merge candidate / sub-pel MV; "
+          f"slice bytes) {out['ctbs']}; mean slice bytes per frame (CU "
+          f"syntax alone, levels zeroed / residual) {bits}; fallback frames "
+          f"{out['fallback_frames']}; hand-kernel launches {launches}; peak "
+          f"device memory {peak} B; one more pair: TU-split P frame "
+          f"{out['launches_per_split_p_frame']} CUDA launches, "
+          f"{out['device_ms_per_split_p_frame']:.3f} device ms, B frame "
+          f"{out['launches_per_b_frame']} CUDA launches, "
+          f"{out['device_ms_per_b_frame']:.3f} device ms")
+    return out
+
+
+def hevc_b_streams(device: str, w: int, h: int, runs, gop: int,
+                   texture: int = 6) -> tuple[bytes, bytes]:
+    """H265DeviceEncoder(bframes=1, tu_split=True) at qp 30 on the device
+    test pattern: the push_frame/flush stream of the frames of `runs`,
+    and the encode_run_b_async stream of those runs."""
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+
+    src = DeviceTestPatternSource(w, h, texture=texture, device=device)
+
+    def enc():
+        return H265DeviceEncoder(w, h, qp=30, gop=gop, bframes=1,
+                                 tu_split=True, device=device)
+    push = enc()
+    pushed = push.headers()
+    for i in (i for idx in runs for i in idx):
+        pushed += b"".join(c[0] for c in push.push_frame(*src.frame(i)))
+    pushed += b"".join(c[0] for c in push.flush())
+    run = enc()
+    ran = run.headers()
+    for idx in runs:
+        ran += b"".join(p.result().data for p, _, _ in
+                        run.encode_run_b_async(source=src, indices=idx))
+    return pushed, ran
+
+
+def phase_hevc_bframes_gpu_equals_cpu(tag: str, main: dict) -> None:
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+
+    runs = [range(0, 3), range(3, 6)]
+    t = time.perf_counter()
+    gpu = hevc_b_streams("cuda", 320, 192, runs, 4)
+    cpu = hevc_b_streams("cpu", 320, 192, runs, 4)
+    check(gpu[0] == cpu[0], "HEVC B 320x192 push_frame: GPU and CPU differ")
+    check(gpu[1] == cpu[1],
+          "HEVC B 320x192 encode_run_b_async: GPU and CPU differ")
+    print(f"{tag} HEVC B frames + TU split GPU == CPU at 320x192, 6 frames, "
+          f"gop 4: push_frame {len(gpu[0])} B, encode_run_b_async (2 runs) "
+          f"{len(gpu[1])} B identical ({time.perf_counter() - t:.2f} s)")
+    t = time.perf_counter()
+    src = DeviceTestPatternSource(1920, 1088, texture=6, device="cpu")
+    enc = H265DeviceEncoder(1920, 1088, qp=30, gop=60, bframes=1,
+                            tu_split=True, device="cpu")
+    cpu2 = b"".join(p.result().data for p, _, _ in
+                    enc.encode_run_b_async(source=src, indices=range(3)))
+    check(cpu2 == main["first_three"],
+          "HEVC B 1080p IDR + first pair: GPU and CPU bytes differ")
+    print(f"{tag} HEVC B frames + TU split GPU == CPU at 1920x1088, first "
+          f"IDR + pair: {len(cpu2)} B identical (CPU run "
+          f"{time.perf_counter() - t:.2f} s)")
 
 
 # ---------------------------------------------------------------------------
@@ -2046,6 +2340,10 @@ def main() -> int:
     phase_hevc_gpu_equals_cpu(tag, sao, sao=True)
     print(json.dumps({"hevc_sao_path": {
         k: v for k, v in sao.items() if k != "first_two"}}))
+    bpath = phase_hevc_bframes(tag)
+    phase_hevc_bframes_gpu_equals_cpu(tag, bpath)
+    print(json.dumps({"hevc_bframes_path": {
+        k: v for k, v in bpath.items() if k != "first_three"}}))
 
     def launches(name):
         return {"launches_cavlc_path": main_out["launches"][name],
@@ -2053,7 +2351,8 @@ def main() -> int:
                 "launches_app_loop": app["launches"][name],
                 "launches_cabac_path": cabac["launches"][name],
                 "launches_h264_app_loop": h264_app["launches"][name],
-                "launches_hevc_sao_path": sao["launches"][name]}
+                "launches_hevc_sao_path": sao["launches"][name],
+                "launches_hevc_bframes_path": bpath["launches"][name]}
     p = k1["P"]
     kernels = [{
         "name": "merge_windows", "route": KERNELS["merge_windows"][2],
@@ -2093,7 +2392,7 @@ def main() -> int:
             "design": DESIGNS[src], **launches(name),
         })
     # K4 runs on every HEVC IDR: the HEVC path (bench.py's default), the
-    # HEVC app loop and the SAO path
+    # HEVC app loop, the SAO path and the B-frame path
     name, replaces, route = KERNELS["h265_intra"]
     n, n4k = h265k["1080p"], h265k["4K"]
     kernels.append({

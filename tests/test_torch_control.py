@@ -183,6 +183,61 @@ def test_cut_detector_equal():
     assert cuts.count(True) == 2          # the cuts at frames 8 and 16
 
 
+def _lookahead_clip(seed: int = 9):
+    """Luma frames for the lookahead: a slow pan (smooth: B allowed),
+    noise that grows slowly enough for the cut detector's running mean
+    to follow (erratic but no cut: B refused), then a cut to flat
+    content that pans on."""
+    rng = np.random.default_rng(seed)
+    base = rng.integers(0, 256, (64, 160)).astype(np.int32)
+    frames = []
+    for i in range(34):
+        if i < 8:
+            y = base[:, i:i + 96]
+        elif i < 24:
+            amp = 8 * (i - 7)
+            y = base[:, 8:104] + rng.integers(-amp, amp + 1, (64, 96))
+        else:
+            y = np.full((64, 96), 250) - (np.arange(96) + i) % 7
+        frames.append((np.clip(y, 0, 255).astype(np.uint8),))
+    return frames
+
+
+@pytest.mark.parametrize("bframes", [0, 1])
+@pytest.mark.parametrize("depth", [2, 3, 5])
+def test_lookahead_plans_equal(depth, bframes):
+    """The port's Lookahead releases the JAX Lookahead's plans: the same
+    frames, cuts (force_idr) and B hints (allow_b), while pushing and at
+    the flush."""
+    def key(plans):
+        return [(id(p.frame), p.force_idr, p.allow_b) for p in plans]
+
+    frames = _lookahead_clip()
+    ref = j_look.Lookahead(depth=depth, bframes=bframes)
+    port = t_look.Lookahead(depth=depth, bframes=bframes)
+    plans = []
+    for f in frames:
+        got = port.push(f)
+        assert key(got) == key(ref.push(f))
+        plans += got
+    got = port.flush()
+    assert key(got) == key(ref.flush())
+    plans += got
+    assert [p.frame for p in plans] == frames
+    assert [p.force_idr for p in plans].count(True) == 1      # frame 24
+    allow = [p.allow_b for p in plans]
+    assert (True in allow and False in allow) if bframes else (
+        True not in allow)
+
+
+def test_lookahead_plan_is_the_jax_plan():
+    f = (np.zeros((4, 4), np.uint8),)
+    assert [fl.name for fl in dataclasses.fields(t_look.Plan)] == [
+        fl.name for fl in dataclasses.fields(j_look.Plan)]
+    assert t_look.Plan(f) == t_look.Plan(frame=f, force_idr=False,
+                                         allow_b=False)
+
+
 def test_pts_fixup_equal():
     rng = np.random.default_rng(1)
     ref, port = j_ptsfix.PtsFixup(30000, 1001), t_ptsfix.PtsFixup(30000,

@@ -86,10 +86,20 @@ def test_hevc_entry_points_default_to_cuda(monkeypatch):
         H265DeviceEncoder(64, 48)
     assert H265DeviceEncoder(64, 48, device="cpu").device.type == "cpu"
     assert H265DeviceEncoder(64, 48, device="cpu", sao=True).params.sao
-    # the JAX encoder's options that are later slices of the port are
-    # not accepted, so no caller can believe it got them
-    for kw in ({"tu_split": True}, {"bframes": 1},
-               {"native_entropy": False}, {"deblock": False},
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        H265DeviceEncoder(64, 48, bframes=1, tu_split=True)
+    # the inter TU split and B frames set the parameter sets as the JAX
+    # encoder's options do
+    for kw, want in (({}, (False, 0, 1)),
+                     ({"tu_split": True}, (True, 0, 1)),
+                     ({"bframes": 1}, (False, 1, 2)),
+                     ({"bframes": 1, "tu_split": True}, (True, 1, 2))):
+        p = H265DeviceEncoder(64, 48, device="cpu", **kw).params
+        assert (p.tu_split_inter, p.max_reorder, p.max_dpb_minus1) == want
+    # the JAX encoder's options that the port does not take (its modes
+    # without native entropy, deblocking or tile rows) are not accepted,
+    # so no caller can believe it got them
+    for kw in ({"native_entropy": False}, {"deblock": False},
                {"tile_rows": False}):
         with pytest.raises(TypeError, match="unexpected keyword"):
             H265DeviceEncoder(64, 48, device="cpu", **kw)
