@@ -10,10 +10,15 @@ with a >=20 ms housekeeping tick interleaved (SRT stats -> balancer ->
 bitrate -> QP), plus the reference's failure detectors: ACK timeout
 (6000 ms), SIGHUP config reload, SIGALRM forced teardown.
 
-Where it departs from the JAX app: HEVC jobs with `[parallel]` bands or
-gop_parallel raise NotImplementedError when the devices for them are
-there (ROADMAP.md item 14); the JAX app's H.264 branch ignores those
-knobs, and so does the port's.
+HEVC jobs with `[parallel]` bands or gop_parallel run the banded or
+GOP-parallel encoders (parallel/hevc.py) where the devices for them are
+there (`_app_devices`), and ignore the knobs with a note where they are
+not, as the JAX app does; its H.264 branch ignores them, and so does
+the port's. `bands` is slower than one device: one host thread launches
+every band through every stage (on one H100 a 1080p P frame in 4 bands
+takes about 3.9 times the launches of a single-device frame), and the
+banded encoder has no run path, so the app drives it frame by frame.
+No run on several cards has shown bands at least as fast as one.
 """
 
 from __future__ import annotations
@@ -41,6 +46,10 @@ from ceracoder_tpu_torch.control import (
 from ceracoder_tpu_torch.control.config import config_load
 from ceracoder_tpu_torch.control.qp_rate import QpRateController
 from ceracoder_tpu_torch.control.types import MIN_BITRATE, ABS_MAX_BITRATE
+from ceracoder_tpu_torch.parallel.hevc import (
+    GopParallelStreamEncoder,
+    ShardedH265Encoder,
+)
 from ceracoder_tpu_torch.transport.mpegts import TsMuxer, TsPacker
 from ceracoder_tpu_torch.transport.srt import SrtClient, SrtError, srt_available
 from ceracoder_tpu_torch.utils.device import resolve_device
@@ -57,6 +66,15 @@ STALL_CHECK_S = 1.0            # reference: src/ceracoder.c:600
 
 def getms() -> int:
     return int(time.monotonic() * 1000)
+
+
+def _app_devices(device: torch.device) -> list[torch.device]:
+    """The devices the app may spread an HEVC job over ([parallel]):
+    every CUDA device on a card, `device` alone otherwise."""
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
 
 
 class StallDetector:
@@ -201,25 +219,32 @@ class CeracoderApp:
 
         if self.spec.codec == "hevc":
             # device compute + native entropy (the production HEVC
-            # path). [parallel] bands/gop_parallel are the sharded and
-            # GOP-parallel schedulers, not ported yet; with one device
-            # they are ignored, as in the reference app.
-            n_dev = (torch.cuda.device_count()
-                     if self.device.type == "cuda" else 1)
-            if ((self.spec.bands > 1 and n_dev >= self.spec.bands)
-                    or (self.spec.gop_parallel > 1 and n_dev > 1)):
-                raise NotImplementedError(
-                    f"[parallel] bands = {self.spec.bands}, gop_parallel "
-                    f"= {self.spec.gop_parallel} on {n_dev} devices: the "
-                    "parallel encoders are not ported yet (ROADMAP.md "
-                    "item 14)")
-            if self.spec.bands > 1 or self.spec.gop_parallel > 1:
-                print("parallel knobs ignored: "
-                      f"{n_dev} device(s) available", file=sys.stderr)
-            self.encoder = H265DeviceEncoder(
-                self.source.width, self.source.height,
-                qp=self.rate.current_qp, gop=self.spec.gop_frames,
-                device=self.device)
+            # path). [parallel] bands/gop_parallel route through the
+            # banded / GOP-parallel encoders, falling back to one device
+            # when the devices are not there
+            devices = _app_devices(self.device)
+            n_dev = len(devices)
+            size = (self.source.width, self.source.height)
+            if self.spec.bands > 1 and n_dev >= self.spec.bands:
+                self.encoder = ShardedH265Encoder(
+                    *size, qp=self.rate.current_qp,
+                    gop=self.spec.gop_frames, n_bands=self.spec.bands,
+                    devices=devices[:self.spec.bands])
+            elif self.spec.gop_parallel > 1 and n_dev > 1:
+                self.encoder = GopParallelStreamEncoder(
+                    *size, qp=self.rate.current_qp,
+                    gop=self.spec.gop_frames,
+                    devices=devices[:self.spec.gop_parallel])
+                # closed-GOP batches: run == GOP for byte-identity
+                # with a single-device encode
+                self.spec.run = self.spec.gop_frames
+            else:
+                if self.spec.bands > 1 or self.spec.gop_parallel > 1:
+                    print("parallel knobs ignored: "
+                          f"{n_dev} device(s) available", file=sys.stderr)
+                self.encoder = H265DeviceEncoder(
+                    *size, qp=self.rate.current_qp,
+                    gop=self.spec.gop_frames, device=self.device)
             load_entropy = load_hevc_entropy
             self.video_stream_type = 0x24   # STREAM_TYPE_HEVC
         else:
@@ -467,11 +492,12 @@ class CeracoderApp:
         pacer = {"next_frame": next_frame, "next_hk": next_hk,
                  "next_log": next_log, "period": frame_period}
         run_len = max(1, self.spec.run)
+        # the banded encoder has no run path: it takes the per-frame loop
+        use_runs = run_len > 1 and hasattr(self.encoder, "encode_run_async")
         try:
-            if run_len > 1 and isinstance(self.source,
-                                          DeviceTestPatternSource):
+            if use_runs and isinstance(self.source, DeviceTestPatternSource):
                 self._loop_pipelined_dev(pacer, run_len)
-            elif run_len > 1:
+            elif use_runs:
                 self._loop_pipelined(frame_iter, fixer, pacer, run_len)
             else:
                 self._loop_per_frame(frame_iter, fixer, pacer, pts)

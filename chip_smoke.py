@@ -101,7 +101,26 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    and of its B frame); prints frames/s, bytes per I, P and B frame,
    fallback frames and peak device memory; then GPU == CPU at 320x192
    (6 frames, gop 4) for push_frame/flush and for encode_run_b_async
-   in two runs, and for the first 1080p IDR and pair.
+   in two runs, and for the first 1080p IDR and pair;
+15. parallel encoders (parallel/), the bands, GOP slots and mesh cells
+   spread over every card (one card takes them all, one after another):
+   ShardedH265Encoder(1920, 1088, qp=30, gop=60, n_bands=4)
+   through encode_frame for 1 IDR + 9 P frames of the device test
+   pattern, then n_bands=3 (23 + 23 + 22 CTB rows) for 1 IDR + 2 P, then
+   3840x2160 in 8 bands (7 of 17 CTB rows and one of 16) for 1 IDR + 2
+   P, each frame's bytes equal to the single-device encode_frame's at
+   the same size and K4 once per band per IDR (no other hand kernel);
+   K4 on the first and last 4K band's IDR inputs (17 and 16 CTB rows)
+   against its plain version; GopParallelStreamEncoder(1920, 1088,
+   qp=30, gop=10, two slots) for 3 runs of 10, equal to a single-device
+   encode_run_async at gop 10, K4 once per GOP; encode_sharded(
+   make_mesh(2, 4), 28, 28) on 2 streams of 1920x1088, equal to
+   encode_frame_i16_rows per stream, K3 8 times, and one (stream, band)
+   equal to encode_frame_i16_rows on the CPU (K3's plain version) at the
+   band's shape. Prints the 4-band run's P frames/s after one warm P
+   frame, host ms per frame, and one more banded and single-device P
+   frame's launches and device ms (torch.profiler); the 3-frame runs
+   print no rate.
 
 The native libraries (native/src: the HEVC entropy stage, the H.264
 CABAC row coder, the balancer core and, where the libavcodec headers
@@ -929,12 +948,9 @@ def phase_h264_kernels(tag: str) -> dict:
     return numbers
 
 
-def capture_h265_intra_inputs(width: int, height: int, texture: int):
-    """The arguments that H265DeviceEncoder(qp=30) hands K4 for frame 0
-    (the IDR) of the device source."""
+def capture_k4_calls(run) -> list:
+    """The arguments (cloned) of every K4 call that run() makes."""
     import ceracoder_tpu_torch.ops.h265 as h265
-    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
-    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
 
     captured, real = [], h265.h265_intra_cols
 
@@ -945,11 +961,22 @@ def capture_h265_intra_inputs(width: int, height: int, texture: int):
     spy.launches = 0            # the wrapper counts on its module's name
     h265.h265_intra_cols = spy
     try:
-        src = DeviceTestPatternSource(width, height, texture=texture)
-        enc = H265DeviceEncoder(width, height, qp=30, gop=60)
-        enc.encode_run_async(source=src, indices=range(1))[0].result()
+        run()
     finally:
         h265.h265_intra_cols = real
+    return captured
+
+
+def capture_h265_intra_inputs(width: int, height: int, texture: int):
+    """The arguments that H265DeviceEncoder(qp=30) hands K4 for frame 0
+    (the IDR) of the device source."""
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+
+    src = DeviceTestPatternSource(width, height, texture=texture)
+    enc = H265DeviceEncoder(width, height, qp=30, gop=60)
+    captured = capture_k4_calls(lambda: enc.encode_run_async(
+        source=src, indices=range(1))[0].result())
     check(len(captured) == 1, f"captured {len(captured)} K4 calls, want 1")
     return captured[0]
 
@@ -1631,6 +1658,270 @@ def phase_hevc_bframes_gpu_equals_cpu(tag: str, main: dict) -> None:
     print(f"{tag} HEVC B frames + TU split GPU == CPU at 1920x1088, first "
           f"IDR + pair: {len(cpu2)} B identical (CPU run "
           f"{time.perf_counter() - t:.2f} s)")
+
+
+# ---------------------------------------------------------------------------
+# Parallel encoders (phase 15): bands, GOPs and the H.264 mesh on one card
+# ---------------------------------------------------------------------------
+
+def frames_by_encode_frame(enc, src, n: int) -> tuple[list, list]:
+    """encode_frame on frames 0..n-1 of `src`: each frame's bytes and its
+    host ms (each call returns the coded bytes, so the frame's device
+    work is done when it returns)."""
+    data, host_ms = [], []
+    for i in range(n):
+        t = time.perf_counter()
+        data.append(enc.encode_frame(*src.frame(i)).data)
+        host_ms.append(1e3 * (time.perf_counter() - t))
+    return data, host_ms
+
+
+def spread(devices: list, n: int) -> list:
+    """n slots over `devices`, round-robin (one card takes them all)."""
+    return [devices[i % len(devices)] for i in range(n)]
+
+
+def banded_run(tag: str, src, n_bands: int, n: int, single: list,
+               devices: list, profile_p: bool = False,
+               plain_bands: tuple = ()) -> dict:
+    """ShardedH265Encoder(qp=30, gop=60, n_bands, the bands spread over
+    `devices`) through encode_frame on frames 0..n-1 of `src` (1 IDR,
+    then P):
+    each frame's bytes must equal `single` (the single-device
+    encode_frame's), and K4 must run once per band on the IDR and no
+    other hand kernel run. With `profile_p`, the P frames/s of frames
+    2..n-1 (after one warm P frame) and one more P frame under
+    torch.profiler. For each band in `plain_bands`, K4 on that band's
+    inputs of one more IDR against its plain version, at the band's
+    shape."""
+    from ceracoder_tpu_torch.ops.h265 import _i_frame_cols_ref, h265_intra_cols
+    from ceracoder_tpu_torch.parallel.hevc import ShardedH265Encoder
+
+    w, h = src.width, src.height
+    enc = ShardedH265Encoder(w, h, qp=30, gop=60, n_bands=n_bands,
+                             devices=spread(devices, n_bands))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    data, host_ms = frames_by_encode_frame(enc, src, n)
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    check_hevc_launches(launches, n_bands)
+    for i, d in enumerate(data):
+        check_hevc_frame(d, i == 0)
+    check(data == single[:n], f"{w}x{h} in {n_bands} bands: the bytes differ "
+          "from the single-device encode_frame's")
+    rows = [r1 - r0 for r0, r1 in enc.bounds]
+    out = {"size": [w, h], "bands": n_bands, "ctb_rows_per_band": rows,
+           "frames": n, "seconds": secs, "host_ms": host_ms,
+           "launches": launches, "bytes": [len(d) for d in data]}
+    note = ""
+    if profile_p:
+        out["p_fps_warm"] = (n - 2) / (1e-3 * sum(host_ms[2:]))
+        p_launches, p_ms = kernel_launches(
+            lambda: enc.encode_frame(*src.frame(n)))
+        out.update(launches_per_p_frame=p_launches,
+                   device_ms_per_p_frame=p_ms)
+        note += (f"; P frames 2-{n - 1}: {out['p_fps_warm']:.3f} frames/s; "
+                 f"one more P frame: {p_launches} CUDA launches, "
+                 f"{p_ms:.3f} device ms")
+    if plain_bands:
+        calls = capture_k4_calls(
+            lambda: enc.encode_frame(*src.frame(0), force_idr=True))
+        check(len(calls) == n_bands, f"{len(calls)} K4 calls on a banded "
+              f"IDR, want {n_bands}")
+        errs = {}
+        for b in plain_bands:
+            with torch.cuda.device(calls[b][0].device):
+                errs[b] = kernel_err(h265_intra_cols, _i_frame_cols_ref,
+                                     calls[b])
+            check(errs[b] == 0, f"K4 on band {b} of the {w}x{h} IDR "
+                  f"({tuple(calls[b][0].shape)}) differs from its plain "
+                  "version")
+        out["k4_plain_bands"] = {str(b): {"shape": list(calls[b][0].shape),
+                                          "max_abs_err": errs[b]}
+                                 for b in plain_bands}
+        out["max_abs_err"] = max(errs.values())
+        note += "; K4 against its plain version on the IDR of band " + \
+            ", ".join(f"{b} {tuple(calls[b][0].shape)}: max_abs_err="
+                      f"{errs[b]}" for b in plain_bands)
+        h265_intra_cols.launches = 0
+    print(f"{tag} HEVC {w}x{h} in {n_bands} bands ({rows} CTB rows) on "
+          f"{len(set(enc.devices))} card(s): {n} frames, "
+          f"host ms per frame {', '.join(f'{x:.1f}' for x in host_ms)}; "
+          f"bytes equal to the single-device encode_frame's "
+          f"({sum(out['bytes'])} B); hand-kernel launches {launches}"
+          + note)
+    return out
+
+
+def single_run(src, n: int, profile_p: bool = False) -> dict:
+    """The single-device H265DeviceEncoder(qp=30, gop=60).encode_frame on
+    frames 0..n-1 of `src`: bytes, host ms per frame and (`profile_p`)
+    one more P frame's launches and device ms."""
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+
+    enc = H265DeviceEncoder(src.width, src.height, qp=30, gop=60)
+    data, host_ms = frames_by_encode_frame(enc, src, n)
+    out = {"data": data, "host_ms": host_ms}
+    if profile_p:
+        out["launches_per_p_frame"], out["device_ms_per_p_frame"] = \
+            kernel_launches(lambda: enc.encode_frame(*src.frame(n)))
+    return out
+
+
+def gop_parallel_run(tag: str, src, runs: int, run_len: int,
+                     devices: list) -> dict:
+    """GopParallelStreamEncoder(qp=30, gop=run_len, two slots spread over
+    `devices`)
+    for `runs` runs of `run_len` frames through encode_run_async, run N's
+    results read after run N + 1 is launched (as the app's run loop):
+    the bytes must equal a single-device encode_run_async at the same
+    gop, and K4 must run once per GOP."""
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+    from ceracoder_tpu_torch.parallel.hevc import GopParallelStreamEncoder
+
+    w, h = src.width, src.height
+    enc = GopParallelStreamEncoder(w, h, qp=30, gop=run_len,
+                                   devices=spread(devices, 2))
+    torch.cuda.synchronize()
+    reset_launches()
+    data, pending = [], []
+    t0 = time.perf_counter()
+    for r in range(runs):
+        pend = enc.encode_run_async(
+            source=src, indices=range(r * run_len, (r + 1) * run_len))
+        data += [p.result().data for p in pending]
+        pending = pend
+    data += [p.result().data for p in pending]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    check_hevc_launches(launches, runs)
+    single = H265DeviceEncoder(w, h, qp=30, gop=run_len)
+    want = [p.result().data for r in range(runs)
+            for p in single.encode_run_async(
+                source=src, indices=range(r * run_len, (r + 1) * run_len))]
+    check(data == want, "GOP-parallel bytes differ from the single-device "
+          "encode_run_async's")
+    n = runs * run_len
+    out = {"size": [w, h], "gop": run_len, "slots": 2, "frames": n,
+           "seconds": secs, "fps": n / secs, "launches": launches,
+           "bytes": sum(len(d) for d in data)}
+    print(f"{tag} HEVC GOP-parallel {w}x{h}, gop {run_len}, 2 slots on "
+          f"{len(set(enc.devices))} card(s): {n} frames in {secs:.3f} s = "
+          f"{out['fps']:.3f} frames/s; "
+          f"bytes equal to the single-device encode_run_async's "
+          f"({out['bytes']} B); hand-kernel launches {launches}")
+    return out
+
+
+def h264_mesh_run(tag: str, src, devices: list) -> dict:
+    """encode_sharded(make_mesh(2, 4), 28, 28), its 8 cells spread over
+    `devices`, on 2 streams
+    (frames 0 and 1 of `src`): every array must equal
+    encode_frame_i16_rows per stream on the card, and K3 must run 8 times
+    (once per stream and band) and no other hand kernel."""
+    from ceracoder_tpu_torch.ops.intra import encode_frame_i16_rows
+    from ceracoder_tpu_torch.parallel.mesh import (
+        band_bounds,
+        encode_sharded,
+        make_mesh,
+    )
+
+    planes = [torch.stack(p) for p in zip(src.frame(0), src.frame(1))]
+    step = encode_sharded(make_mesh(2, 4, spread(devices, 8)), 28, 28)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    outs, nz = step(*planes)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    want = {name: 8 if name == "h264_intra16_cols" else 0
+            for name in launches}
+    check(launches == want, f"hand-kernel launches {launches} on the H.264 "
+          f"mesh, want {want}")
+    for s in range(2):
+        ref = encode_frame_i16_rows(*(p[s] for p in planes), 28, 28)
+        for k, v in ref.items():
+            got = outs[k]
+            if k == "recon":
+                check(all(torch.equal(a[s], b) for a, b in zip(got, v)),
+                      f"H.264 mesh stream {s}: recon differs")
+            else:
+                check(torch.equal(got[s], v),
+                      f"H.264 mesh stream {s}: {k} differs")
+        nz_want = sum(int((ref[k] != 0).sum()) for k in
+                      ("dc_luma", "ac_luma", "dc_chroma", "ac_chroma"))
+        check(int(nz[s]) == nz_want, f"H.264 mesh stream {s}: nonzero count "
+              f"{int(nz[s])}, want {nz_want}")
+    # stream 1's last band against encode_frame_i16_rows on the CPU,
+    # where K3's wrapper runs its plain version, at the band's shape
+    s, (r0, r1) = 1, band_bounds(src.height // 16, 4)[-1]
+    band = [p[s, n * r0:n * r1].cpu() for p, n in zip(planes, (16, 8, 8))]
+    plain = encode_frame_i16_rows(*band, 28, 28)
+    err = 0
+    for k, v in plain.items():
+        pairs = ([(g[s, n * r0:n * r1], b) for g, b, n
+                  in zip(outs[k], v, (16, 8, 8), strict=True)]
+                 if k == "recon" else [(outs[k][s, r0:r1], v)])
+        for a, b in pairs:
+            a = a.cpu()
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"H.264 mesh band {k}: {tuple(a.shape)} {a.dtype} vs "
+                  f"{tuple(b.shape)} {b.dtype}")
+            err = max(err, int((a.to(torch.int64) - b.to(torch.int64))
+                               .abs().max()))
+    check(err == 0, f"H.264 mesh stream {s}, MB rows {r0}-{r1 - 1}: K3 on "
+          f"the card differs from its plain version on the CPU by {err}")
+    out = {"size": [src.width, src.height], "mesh": [2, 4],
+           "seconds": secs, "launches": launches,
+           "nonzero": nz.tolist(),
+           "plain_band": {"stream": s, "mb_rows": [r0, r1],
+                          "shape": list(band[0].shape)},
+           "max_abs_err": err}
+    print(f"{tag} H.264 intra mesh 2x4 (2 streams of {src.width}x"
+          f"{src.height}) on {len(set(devices))} card(s): {secs:.3f} s; "
+          f"arrays equal to encode_frame_i16_rows per stream; stream {s}'s "
+          f"band of MB rows {r0}-{r1 - 1} {tuple(band[0].shape)} against "
+          f"the CPU (K3's plain version): max_abs_err={err}; hand-kernel "
+          f"launches {launches}")
+    return out
+
+
+def phase_parallel(tag: str, devices: list) -> dict:
+    """Phase 15: the parallel encoders (parallel/), their bands, GOP
+    slots and mesh cells spread over `devices` (every card; one card
+    takes them all); the single-device references on cuda:0."""
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+
+    t0 = time.perf_counter()
+    src = DeviceTestPatternSource(1920, 1088, texture=6)
+    single = single_run(src, 10, profile_p=True)
+    out = {"single_1080p": {k: v for k, v in single.items() if k != "data"}}
+    out["bands_1080p_4"] = banded_run(tag, src, 4, 10, single["data"],
+                                      devices, profile_p=True)
+    out["bands_1080p_3"] = banded_run(tag, src, 3, 3, single["data"],
+                                      devices)
+    print(f"{tag} HEVC {src.width}x{src.height} single-device encode_frame: "
+          f"host ms per frame "
+          f"{', '.join(f'{x:.1f}' for x in single['host_ms'])}; one more P "
+          f"frame: {single['launches_per_p_frame']} CUDA launches, "
+          f"{single['device_ms_per_p_frame']:.3f} device ms")
+    src4k = DeviceTestPatternSource(3840, 2160, texture=6)
+    single4k = single_run(src4k, 3)
+    out["single_4k"] = {"host_ms": single4k["host_ms"],
+                        "bytes": [len(d) for d in single4k["data"]]}
+    out["bands_4k_8"] = banded_run(tag, src4k, 8, 3, single4k["data"],
+                                   devices, plain_bands=(0, 7))
+    del src4k
+    out["gop_parallel"] = gop_parallel_run(tag, src, 3, 10, devices)
+    out["h264_mesh"] = h264_mesh_run(tag, src, devices)
+    out["cards"] = len(devices)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"{tag} phase 15 (parallel encoders) took {out['seconds']:.1f} s")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2344,6 +2635,9 @@ def main() -> int:
     phase_hevc_bframes_gpu_equals_cpu(tag, bpath)
     print(json.dumps({"hevc_bframes_path": {
         k: v for k, v in bpath.items() if k != "first_three"}}))
+    par = phase_parallel(tag, [torch.device("cuda", i)
+                               for i in range(count)])
+    print(json.dumps({"parallel_path": par}))
 
     def launches(name):
         return {"launches_cavlc_path": main_out["launches"][name],
@@ -2352,7 +2646,13 @@ def main() -> int:
                 "launches_cabac_path": cabac["launches"][name],
                 "launches_h264_app_loop": h264_app["launches"][name],
                 "launches_hevc_sao_path": sao["launches"][name],
-                "launches_hevc_bframes_path": bpath["launches"][name]}
+                "launches_hevc_bframes_path": bpath["launches"][name],
+                "launches_hevc_banded_path":
+                    par["bands_1080p_4"]["launches"][name],
+                "launches_gop_parallel_path":
+                    par["gop_parallel"]["launches"][name],
+                "launches_h264_sharded_path":
+                    par["h264_mesh"]["launches"][name]}
     p = k1["P"]
     kernels = [{
         "name": "merge_windows", "route": KERNELS["merge_windows"][2],
@@ -2377,7 +2677,9 @@ def main() -> int:
             "source": f"ceracoder_tpu_torch/csrc/{src}.cu",
             "replaces": replaces,
             "launches": cabac["launches"][name],
-            "max_abs_err": h264k[name]["max_abs_err"],
+            "max_abs_err": max(h264k[name]["max_abs_err"],
+                               par["h264_mesh"]["max_abs_err"]
+                               if name == "h264_intra16_cols" else 0),
             "ms": n["ms"], "ms_spread": n["spread"],
             "plain_ms": n["plain_ms"], "bound_ms": n["bound_ms"],
             "bound_by": n["bound_by"], "bound_share": n["bound_share"],
@@ -2399,7 +2701,8 @@ def main() -> int:
         "name": name, "route": route,
         "source": "ceracoder_tpu_torch/csrc/h265_intra.cu",
         "replaces": replaces, "launches": hevc["launches"][name],
-        "max_abs_err": h265k["max_abs_err"],
+        "max_abs_err": max(h265k["max_abs_err"],
+                           par["bands_4k_8"]["max_abs_err"]),
         "ms": n["ms"], "ms_spread": n["spread"], "plain_ms": n["plain_ms"],
         "bound_ms": n["bound_ms"], "bound_by": n["bound_by"],
         "bound_share": n["bound_share"], "library_ms": None,

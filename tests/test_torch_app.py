@@ -36,6 +36,10 @@ from ceracoder_tpu_torch.app.source import (
     TestPatternSource,
 )
 from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+from ceracoder_tpu_torch.parallel.hevc import (
+    GopParallelStreamEncoder,
+    ShardedH265Encoder,
+)
 
 # one intra-op thread: pytest-xdist workers share the cores, and at
 # these frame sizes torch's extra threads only spin
@@ -247,9 +251,13 @@ def test_encode_frame_matches_jax():
 @pytest.mark.parametrize("knob", ["bands", "gop_parallel"])
 def test_parallel_knobs_raise_with_devices(jobs, tmp_path, monkeypatch,
                                           capsys, knob):
-    """With two devices there, bands = 2 / gop_parallel = 2 would run
-    the parallel encoders, which are not ported: raise. With one device
-    (the CPU) they are ignored, as in the JAX app."""
+    """bands = 2 / gop_parallel = 2 (the name is kept from when the port
+    raised here). With one device (the CPU) the knobs are ignored with a
+    note, as in the JAX app. With four devices there (`_app_devices`
+    patched to four CPU entries) bands routes to ShardedH265Encoder over
+    the first two, gop_parallel to GopParallelStreamEncoder over the
+    first two with runs of one GOP. On a card `_app_devices` lists every
+    CUDA device."""
     job = tmp_path / "par.ini"
     job.write_text(Path(jobs["per_frame"]).read_text()
                    + f"\n[parallel]\n{knob} = 2\n")
@@ -257,10 +265,24 @@ def test_parallel_knobs_raise_with_devices(jobs, tmp_path, monkeypatch,
     app = t_main.CeracoderApp(opts, device="cpu")
     assert type(app.encoder) is H265DeviceEncoder
     assert "parallel knobs ignored: 1 device(s)" in capsys.readouterr().err
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+
+    cpu = torch.device("cpu")
+    monkeypatch.setattr(t_main, "_app_devices", lambda device: [cpu] * 4)
+    app = t_main.CeracoderApp(opts, device="cpu")
+    assert "ignored" not in capsys.readouterr().err
+    if knob == "bands":
+        assert type(app.encoder) is ShardedH265Encoder
+        assert app.encoder.devices == [cpu] * 2 and app.spec.run == 1
+    else:
+        assert type(app.encoder) is GopParallelStreamEncoder
+        assert app.encoder.devices == [cpu] * 2
+        assert app.spec.run == app.spec.gop_frames == 8
+
+    monkeypatch.undo()
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        t_main.CeracoderApp(opts)
+    assert t_main._app_devices(torch.device("cuda")) == [
+        torch.device("cuda", 0), torch.device("cuda", 1)]
+    assert t_main._app_devices(cpu) == [cpu]
 
 
 def _builds_at_construction(job_text, monkeypatch, tmp_path):
