@@ -17,9 +17,13 @@ and numpy only: never jax, never anything of ``ceracoder_tpu``.
                PTS fixup and the main loop.
 - ``control/`` the balancers, their runner (native core by default),
                QP rate control and the scene-cut detector.
-- ``transport/`` MPEG-TS mux, the 1316 B packer and the SRT client.
+- ``transport/`` MPEG-TS mux, the 1316 B packer, the SRT client and the
+               bonded-link emulator (``linksim.py``).
 - ``audio/``   AAC / Opus encoding through the native shim.
-- ``native/``  ctypes declarations of the native balancer and buffers.
+- ``native/``  ctypes declarations of the native balancer and buffers,
+               and the native TS muxer, packer and SRT client.
+- ``bindings/`` the supervisor's API: argv, job and config writers,
+               spawn, SIGHUP reload, SIGTERM stop of this package's app.
 - ``utils/``   device resolution, the kernel build and the native
                libraries' build.
 

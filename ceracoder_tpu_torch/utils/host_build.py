@@ -13,7 +13,12 @@ Each library the port needs is compiled in place, alone, with g++ into
 - ``audio_enc``: the AAC / Opus encoder shim (``audio_enc.cc``, with
   ``mpegts.cc`` for the output buffer it writes into), linked with
   libavcodec and built only where its headers are (``have_avcodec``,
-  the ``HAVE_AVCODEC`` test of native/Makefile).
+  the ``HAVE_AVCODEC`` test of native/Makefile);
+- ``mpegts``: the native TS muxer and SRT payload packer
+  (``mpegts.cc``);
+- ``srt_client``: the native SRT client (``srt_client.cc``), linked
+  with ``-ldl``: it ``dlopen``s libsrt when first asked, so it builds
+  where libsrt is missing too.
 
 A build is keyed by a hash of the compiler flags, its link flags and
 every file it compiles or includes (``library_path``), and concurrent
@@ -61,6 +66,8 @@ LIBRARIES = {
     "balancer": NativeLib(("balancer.cc",)),
     "audio_enc": NativeLib(("audio_enc.cc", "mpegts.cc"),
                            link=("-lavcodec", "-lavutil")),
+    "mpegts": NativeLib(("mpegts.cc",)),
+    "srt_client": NativeLib(("srt_client.cc",), link=("-ldl",)),
 }
 
 

@@ -120,11 +120,38 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    band's shape. Prints the 4-band run's P frames/s after one warm P
    frame, host ms per frame, and one more banded and single-device P
    frame's launches and device ms (torch.profiler); the 3-frame runs
-   print no rate.
+   print no rate;
+16. the supervisor (bindings/), native TS and per-stream control:
+   (a) the port's app as a supervised process: the bindings write the
+   job (JobBuilder: test source, 1080p, 30 frames/s, hevc, i.e.
+   jobs/hevc_test_1080p30) and the config (build_run_artifacts: fixed
+   balancer, latency 2000 ms), `spawn` starts `python -m
+   ceracoder_tpu_torch` (or an installed ceracoder-tpu-torch; checked)
+   with PYTHONUNBUFFERED, its stall watchdog armed, sending UDP to a
+   listener here; after the first payload (deadline 120 s) about 5 s
+   of streaming, then a lower max_bitrate written and `send_hup`: the
+   child must print `Config reloaded: <min> - <max> Kbps` within 5 s;
+   about 3 s more, then `send_term`: exit code 0 within 3 s (the
+   app's SIGALRM teardown forces an exit, also 0, at 3 s), not
+   running; every payload 1316 B of TS with sync bytes and unbroken
+   continuity, a keyframe, no `Pipeline stall detected`. Prints the
+   seconds to the first payload, payloads/s, SIGHUP to the reload line
+   and SIGTERM to exit. (c) BASELINE.md config (4): two
+   H265DeviceEncoder(1920, 1088, qp=32, gop=60) streams on the card,
+   each with its own BondedLink (one modem of 8 Mbps; one of 2 Mbps),
+   adaptive BalancerRunner and QpRateController(fps=30), two 20 ms
+   ticks a frame for 60 frames of the device test pattern; the weak
+   stream must end at a higher mean QP over its last 10 frames and a
+   lower bitrate, K4 once per IDR per stream and no other hand kernel.
+   (b) the first 10 access units of (c)'s healthy stream through
+   NativeTsMuxer + NativeTsPacker and the Python TsMuxer + TsPacker,
+   byte for byte; NativeSrtClient refuses with "libsrt unavailable"
+   where libsrt does not load, else sends to a loopback listener.
 
 The native libraries (native/src: the HEVC entropy stage, the H.264
-CABAC row coder, the balancer core and, where the libavcodec headers
-are, the audio shim; g++) are built in phase 2 beside the kernels.
+CABAC row coder, the balancer core, the TS muxer and packer, the SRT
+client and, where the libavcodec headers are, the audio shim; g++) are
+built in phase 2 beside the kernels.
 
 The last lines are the nvidia-smi line, a JSON line of kernel numbers
 and the result line {"ok": true, "device": {...}}. It prints no result
@@ -312,7 +339,8 @@ def build_kernels(tag: str) -> None:
     from ceracoder_tpu_torch.utils import host_build
     from ceracoder_tpu_torch.utils.cuda_build import build_library
 
-    native_libs = ["hevc_entropy", "h264_cabac", "balancer"]
+    native_libs = ["hevc_entropy", "h264_cabac", "balancer", "mpegts",
+                   "srt_client"]
     if host_build.have_avcodec():
         native_libs.append("audio_enc")
     t0 = time.perf_counter()
@@ -2444,6 +2472,406 @@ def phase_app_gpu_equals_cpu(tag: str, tmpdir) -> None:
                   f"({time.perf_counter() - t:.2f} s)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the supervisor bindings, native TS and per-stream control
+# ---------------------------------------------------------------------------
+
+SUPERVISED_JOB = dict(source="test", resolution="1080p", fps=30,
+                      codec="hevc")          # jobs/hevc_test_1080p30
+SUPERVISED_FIRST_S = 120.0    # deadline for the first payload
+SUPERVISED_STREAM_S = 5.0     # streaming before the SIGHUP
+SUPERVISED_RELOAD_S = 5.0     # deadline for the reload line
+SUPERVISED_TAIL_S = 3.0       # streaming after the reload
+SUPERVISED_TERM_S = 10.0      # send_term's wait
+RELOAD_MAX_KBPS = 3000
+FORCED_EXIT_S = 3.0           # app/main.py:stop's SIGALRM teardown
+
+
+class UdpSink:
+    """The supervised app's receiver: a UDP socket on 127.0.0.1 whose
+    daemon thread keeps every payload and its host time; `close` drains
+    it until 0.2 s pass without one."""
+
+    def __init__(self):
+        import socket
+
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        self.sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 1 << 24)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.settimeout(0.2)
+        self.port = self.sock.getsockname()[1]
+        self.times, self.payloads = [], []
+        self._draining = threading.Event()
+        self.thread = threading.Thread(target=self._serve, daemon=True)
+        self.thread.start()
+
+    def _serve(self):
+        import socket
+        while True:
+            try:
+                data = self.sock.recv(65536)
+            except socket.timeout:
+                if self._draining.is_set():
+                    return
+                continue
+            self.times.append(time.perf_counter())
+            self.payloads.append(data)
+
+    def close(self):
+        self._draining.set()
+        self.thread.join(timeout=10)
+        self.sock.close()
+
+
+class LineLog:
+    """A child's merged stdout and stderr, line by line with host times,
+    read on a daemon thread."""
+
+    def __init__(self, stream):
+        self.lines: list = []
+        self.thread = threading.Thread(target=self._read, args=(stream,),
+                                       daemon=True)
+        self.thread.start()
+
+    def _read(self, stream):
+        for line in stream:
+            self.lines.append((time.perf_counter(), line.rstrip("\n")))
+
+    def first(self, text: str, since: float = 0.0):
+        return next((t for t, line in list(self.lines)
+                     if t >= since and text in line), None)
+
+    def tail(self, n: int = 30) -> str:
+        return "\n".join(line for _, line in self.lines[-n:])
+
+
+def ts_video_summary(payloads: list) -> dict:
+    """Keyframes (the muxer writes PAT + PMT before each keyframe and
+    nowhere else), access units (PES starts on the video PID) and
+    whether an HEVC IDR_W_RADL NAL unit header is in the video
+    elementary stream."""
+    data = np.frombuffer(b"".join(payloads), np.uint8).reshape(-1, 188)
+    pid = (data[:, 1].astype(np.int64) & 0x1F) << 8 | data[:, 2]
+    video = data[pid == 0x0100]
+    es = b"".join(p[5 + int(p[4]) if p[3] & 0x20 else 4:].tobytes()
+                  for p in video)
+    return {"keyframes": int((pid == 0).sum()),
+            "access_units": int(((video[:, 1] >> 6) & 1).sum()),
+            "idr_nal": b"\x00\x00\x01\x26\x01" in es}
+
+
+def phase_supervised_app(tag: str, tmpdir: Path) -> dict:
+    """Phase 16 (a): the port's app as CERALIVE's supervisor runs it,
+    through the port's bindings: job and config written, the process
+    spawned with its stall watchdog armed, a SIGHUP reload of a lower
+    max_bitrate, a SIGTERM stop."""
+    import os
+
+    from ceracoder_tpu_torch.bindings import (
+        JobBuilder, build_run_artifacts, find_executable, is_running,
+        send_hup, send_term, spawn, write_config, write_jobspec)
+    from ceracoder_tpu_torch.bindings.cli import RunOptions
+    from ceracoder_tpu_torch.bindings.jobs import JobRequest
+
+    job = tmpdir / "hevc_test_1080p30"
+    job_text = JobBuilder().build(JobRequest(**SUPERVISED_JOB))
+    write_jobspec(job, job_text)
+    cfg_path = tmpdir / "ceracoder.conf"
+    sink = UdpSink()
+    opts = RunOptions(str(job), "udp", sink.port, config_path=str(cfg_path),
+                      balancer="fixed", latency=2000)
+    art = build_run_artifacts(opts)
+    write_config(cfg_path, art.ini)
+    prefix = find_executable()
+    check(prefix[-2:] == ["-m", "ceracoder_tpu_torch"]
+          or Path(prefix[0]).name == "ceracoder-tpu-torch",
+          f"the bindings would launch {prefix}, not the port's app")
+    # the child makes its own CUDA context: the parent's work is done
+    torch.cuda.synchronize()
+    env = {**os.environ, "PYTHONUNBUFFERED": "1",
+           "PYTHONPATH": os.pathsep.join(
+               filter(None, [str(ROOT), os.environ.get("PYTHONPATH")]))}
+    t0 = time.perf_counter()
+    proc = spawn(art.args, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                 stderr=subprocess.STDOUT, text=True)
+    log = LineLog(proc.stdout)
+    try:
+        while not sink.payloads and time.perf_counter() - t0 < \
+                SUPERVISED_FIRST_S:
+            check(is_running(proc), f"the app exited {proc.returncode} "
+                  f"before its first payload:\n{log.tail()}")
+            time.sleep(0.05)
+        check(bool(sink.payloads), f"no payload within "
+              f"{SUPERVISED_FIRST_S:.0f} s:\n{log.tail()}")
+        t_first = sink.times[0]
+        time.sleep(SUPERVISED_STREAM_S)
+        art2 = build_run_artifacts(
+            opts, overrides={"max_bitrate": RELOAD_MAX_KBPS})
+        write_config(cfg_path, art2.ini)
+        t_hup = time.perf_counter()
+        check(send_hup(proc), "the app was not running at the SIGHUP")
+        want = (f"Config reloaded: {art2.config.min_bitrate} - "
+                f"{RELOAD_MAX_KBPS} Kbps")
+        while log.first(want, t_hup) is None and \
+                time.perf_counter() - t_hup < SUPERVISED_RELOAD_S:
+            time.sleep(0.01)
+        t_reload = log.first(want, t_hup)
+        check(t_reload is not None, f"no '{want}' within "
+              f"{SUPERVISED_RELOAD_S:.0f} s of the SIGHUP:\n{log.tail()}")
+        time.sleep(SUPERVISED_TAIL_S)
+        check(is_running(proc), f"the app exited {proc.returncode} before "
+              f"the SIGTERM:\n{log.tail()}")
+        t_term = time.perf_counter()
+        stopped = send_term(proc, wait_s=SUPERVISED_TERM_S)
+        term_s = time.perf_counter() - t_term
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        log.thread.join(timeout=10)
+        sink.close()
+    check(stopped, f"the app did not stop within {SUPERVISED_TERM_S:.0f} s "
+          "of the SIGTERM")
+    check(proc.returncode == 0, f"the app exited {proc.returncode}:\n"
+          f"{log.tail()}")
+    check(not is_running(proc), "the app still runs after send_term")
+    # a forced teardown (SIGALRM) also exits 0, silently, FORCED_EXIT_S
+    # after the stop: a clean stop is one that comes before it
+    check(term_s < FORCED_EXIT_S, f"the app took {term_s:.3f} s to exit "
+          f"after the SIGTERM: its {FORCED_EXIT_S:.0f} s forced teardown")
+    stalls = [line for _, line in log.lines if "Pipeline stall" in line]
+    check(not stalls, f"the stall watchdog fired: {stalls}")
+    packets = check_ts_payloads(sink.payloads)
+    video = ts_video_summary(sink.payloads)
+    check(video["keyframes"] >= 1 and video["idr_nal"],
+          f"no keyframe in the stream: {video}")
+    window = t_term - t_first
+    in_window = [t for t in sink.times if t_first <= t <= t_term]
+    out = {
+        "job": job_text,
+        "argv": prefix + art.args, "config": art.ini,
+        "seconds_to_first_payload": t_first - t0,
+        "payloads": len(sink.payloads), "ts_packets": packets,
+        "payloads_per_s": len(in_window) / window,
+        "mbps": len(in_window) * 1316 * 8 / window / 1e6,
+        "window_s": window, **video,
+        "hup_to_reload_line_s": t_reload - t_hup,
+        "term_to_exit_s": term_s, "exit_code": proc.returncode,
+        "log_tail": [line for _, line in log.lines[-8:]],
+    }
+    print(f"{tag} phase 16 (a) supervised app ({' '.join(prefix[-2:])}, "
+          f"watchdog armed): first payload "
+          f"{out['seconds_to_first_payload']:.3f} s after spawn; "
+          f"{out['payloads_per_s']:.2f} payloads/s "
+          f"({out['mbps']:.3f} Mbps) over {window:.3f} s; "
+          f"{video['access_units']} access units, {video['keyframes']} "
+          f"keyframe(s); SIGHUP to '{want}' {out['hup_to_reload_line_s']:.3f}"
+          f" s; SIGTERM to exit {term_s:.3f} s, code {proc.returncode}; "
+          f"{len(sink.payloads)} payloads of 1316 B ({packets} TS packets, "
+          "continuity unbroken), no stall")
+    return out
+
+
+def native_srt_loopback() -> dict:
+    """NativeSrtClient to an in-process SRT listener (the port's Python
+    socket): 10 payloads sent, received and equal."""
+    import socket
+
+    from ceracoder_tpu_torch.native import NativeSrtClient
+    from ceracoder_tpu_torch.transport.srt import (
+        SRTO_RCVLATENCY, SrtError, SrtSocket)
+
+    probe = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    probe.bind(("127.0.0.1", 0))
+    port = probe.getsockname()[1]
+    probe.close()
+    sock = SrtSocket()
+    sock.set_int(SRTO_RCVLATENCY, 120)
+    sock.bind("127.0.0.1", port)
+    sock.listen()
+    received, peers = [], []
+
+    def serve():
+        try:
+            peers.append(sock.accept())
+            while len(received) < 10:
+                data = peers[0].recv(2000)
+                if not data:
+                    return
+                received.append(data)
+        except SrtError:
+            pass
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    cli = NativeSrtClient()
+    payload = bytes([0x47]) + bytes(1315)
+    try:
+        cli.connect("127.0.0.1", port, latency_ms=300)
+        sent = [cli.send(payload) for _ in range(10)]
+        th.join(timeout=5)
+        stats = cli.get_stats()
+    finally:
+        cli.close()
+        for p in peers:
+            p.close()
+        sock.close()
+    check(sent == [1316] * 10 and received == [payload] * 10,
+          f"SRT loopback: sent {sent}, received {len(received)}")
+    return {"sent": 10, "received": len(received), "rtt_ms": stats.msRTT,
+            "negotiated_latency_ms": cli.negotiated_latency}
+
+
+def phase_native_ts(tag: str, aus: list) -> dict:
+    """Phase 16 (b): HEVC access units (Annex B, parameter sets before
+    each keyframe, as the app muxes them) through NativeTsMuxer +
+    NativeTsPacker and through the port's Python TsMuxer + TsPacker,
+    byte for byte; the native SRT client where libsrt loads, else its
+    refusal."""
+    from ceracoder_tpu_torch.native import (
+        NativeSrtClient, NativeTsMuxer, NativeTsPacker, load_srt_client)
+    from ceracoder_tpu_torch.transport.mpegts import (
+        STREAM_TYPE_HEVC, TsMuxer, TsPacker)
+
+    sides = {"native": (NativeTsMuxer(video_stream_type=STREAM_TYPE_HEVC),
+                        NativeTsPacker(1316)),
+             "python": (TsMuxer(video_stream_type=STREAM_TYPE_HEVC),
+                        TsPacker(1316))}
+    out, secs = {}, {}
+    for name, (mux, packer) in sides.items():
+        t = time.perf_counter()
+        payloads = []
+        for i, (au, key) in enumerate(aus):
+            payloads += packer.feed(mux.mux_video(au, 3000 * i + 9000,
+                                                  keyframe=key))
+        out[name] = (payloads, packer.flush())
+        secs[name] = time.perf_counter() - t
+    check(out["native"] == out["python"],
+          "native and Python TS bytes differ")
+    payloads, tail = out["native"]
+    check_ts_payloads(payloads)
+    res = {"access_units": len(aus), "payloads": len(payloads),
+           "bytes": sum(map(len, payloads)) + len(tail),
+           "host_ms_per_au": {k: v * 1000 / len(aus) for k, v in secs.items()}}
+    if load_srt_client().cc_srt_available():
+        res["srt"] = native_srt_loopback()
+    else:
+        try:
+            NativeSrtClient()
+        except RuntimeError as e:
+            check(str(e) == "libsrt unavailable", f"NativeSrtClient: {e}")
+            res["srt"] = "libsrt unavailable (refused as JAX's client is)"
+        else:
+            check(False, "NativeSrtClient built without libsrt")
+    print(f"{tag} phase 16 (b) native TS: {len(aus)} HEVC 1080p access "
+          f"units, {res['bytes']} B ({res['payloads']} payloads and the "
+          f"flushed tail), native "
+          f"== Python byte for byte (host ms per access unit: native "
+          f"{res['host_ms_per_au']['native']:.3f}, Python "
+          f"{res['host_ms_per_au']['python']:.3f}); SRT: {res['srt']}")
+    return res
+
+
+CONTROL_LINKS_BPS = (8e6, 2e6)
+CONTROL_FRAMES = 60
+
+
+def phase_per_stream_control(tag: str) -> tuple[dict, list]:
+    """Phase 16 (c): BASELINE.md config (4), two 1080p streams on one
+    card, each with its own encoder, bonded link, adaptive balancer and
+    QP rate controller (tests/test_multistream.py's stack): two 20 ms
+    ticks a frame, the link fed the balancer's bitrate."""
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+    from ceracoder_tpu_torch.control import BalancerRunner, CeracoderConfig
+    from ceracoder_tpu_torch.control.qp_rate import QpRateController
+    from ceracoder_tpu_torch.transport.linksim import BondedLink, Modem
+
+    src = DeviceTestPatternSource(1920, 1088, texture=6)
+    links = [BondedLink(modems=[Modem(bps)]) for bps in CONTROL_LINKS_BPS]
+    runners = [BalancerRunner(CeracoderConfig(), "adaptive",
+                              srt_latency=2000, quiet=True)
+               for _ in links]
+    encs = [H265DeviceEncoder(1920, 1088, qp=32, gop=60) for _ in links]
+    rates = [QpRateController(fps=30.0, qp=32.0) for _ in links]
+    bitrate = [r.config.max_bitrate for r in runners]
+    qp = [32, 32]
+    hist = [{"qp": [], "bytes": [], "bitrate": [], "host_ms": []}
+            for _ in links]
+    keys, aus = 0, []
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(CONTROL_FRAMES):
+        y, u, v = src.frame(i)
+        for k in range(len(links)):
+            t = time.perf_counter()
+            fr = encs[k].encode_frame(y, u, v, qp=int(qp[k]))
+            hist[k]["host_ms"].append((time.perf_counter() - t) * 1000)
+            keys += fr.keyframe
+            if k == 0 and len(aus) < 10:
+                aus.append(((encs[k].headers() if fr.keyframe else b"")
+                            + fr.data, fr.keyframe))
+            for _ in range(2):   # ~two 20 ms ticks per frame
+                stats = links[k].tick(bitrate[k])
+                bitrate[k] = runners[k].step(stats).new_bitrate
+            qp[k] = rates[k].update(bitrate[k], len(fr.data) * 8,
+                                    keyframe=fr.keyframe)
+            for key, val in (("qp", qp[k]), ("bytes", len(fr.data)),
+                             ("bitrate", bitrate[k])):
+                hist[k][key].append(val)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    check(keys == len(links), f"{keys} keyframes in two streams of "
+          f"{CONTROL_FRAMES} frames at gop 60, want one each")
+    for name, n in launches.items():
+        want = keys if name == "h265_intra_cols" else 0
+        check(n == want, f"{name} launched {n} times in the two streams, "
+              f"want {want}")
+    q = [float(np.mean(h["qp"][-10:])) for h in hist]
+    check(q[1] > q[0], f"the weak-link stream's QP {q[1]:.2f} is not above "
+          f"the healthy one's {q[0]:.2f} over the last 10 frames")
+    check(bitrate[1] < bitrate[0], f"the weak-link stream's bitrate "
+          f"{bitrate[1]} is not below the healthy one's {bitrate[0]}")
+    out = {"frames_per_stream": CONTROL_FRAMES, "seconds": secs,
+           "links_bps": list(CONTROL_LINKS_BPS), "launches": launches,
+           "streams": [{
+               "link_mbps": bps / 1e6, "final_qp": h["qp"][-1],
+               "mean_qp_last_10": qm, "final_bitrate": b,
+               "mean_bytes_p": float(np.mean(h["bytes"][1:])),
+               "host_ms_per_frame": float(np.mean(h["host_ms"])),
+               "host_ms_per_p_frame": float(np.mean(h["host_ms"][1:])),
+               "qp_every_10": h["qp"][::10],
+               "bitrate_every_10": h["bitrate"][::10]}
+               for bps, h, qm, b in zip(CONTROL_LINKS_BPS, hist, q, bitrate)]}
+    for s in out["streams"]:
+        print(f"{tag} phase 16 (c) stream on a {s['link_mbps']:g} Mbps link: "
+              f"final QP {s['final_qp']}, mean QP of the last 10 frames "
+              f"{s['mean_qp_last_10']:.2f}, final bitrate "
+              f"{s['final_bitrate']} bps, mean P frame {s['mean_bytes_p']:.1f}"
+              f" B, host ms per frame {s['host_ms_per_frame']:.3f} (P "
+              f"{s['host_ms_per_p_frame']:.3f})")
+    print(f"{tag} phase 16 (c) two 1080p streams x {CONTROL_FRAMES} frames "
+          f"in {secs:.3f} s; kernel launches {launches}")
+    return out, aus
+
+
+def phase_supervisor(tag: str) -> dict:
+    """Phase 16: (a) the app spawned, reloaded and stopped through the
+    bindings, (c) per-stream control at 1080p, (b) native TS on (c)'s
+    first 10 access units."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as d:
+        out = {"supervised_app": phase_supervised_app(tag, Path(d))}
+    out["per_stream_control"], aus = phase_per_stream_control(tag)
+    out["native_ts"] = phase_native_ts(tag, aus)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"{tag} phase 16 (supervisor, native TS, per-stream control) "
+          f"took {out['seconds']:.1f} s")
+    return out
+
+
 DESIGNS = {
     "h264_deblock": "one-cta-per-mb-row, luma and chroma warps, "
                     "cp.async chunk ring",
@@ -2638,6 +3066,8 @@ def main() -> int:
     par = phase_parallel(tag, [torch.device("cuda", i)
                                for i in range(count)])
     print(json.dumps({"parallel_path": par}))
+    sup = phase_supervisor(tag)
+    print(json.dumps({"supervisor_path": sup}))
 
     def launches(name):
         return {"launches_cavlc_path": main_out["launches"][name],
@@ -2652,7 +3082,9 @@ def main() -> int:
                 "launches_gop_parallel_path":
                     par["gop_parallel"]["launches"][name],
                 "launches_h264_sharded_path":
-                    par["h264_mesh"]["launches"][name]}
+                    par["h264_mesh"]["launches"][name],
+                "launches_per_stream_control":
+                    sup["per_stream_control"]["launches"][name]}
     p = k1["P"]
     kernels = [{
         "name": "merge_windows", "route": KERNELS["merge_windows"][2],
