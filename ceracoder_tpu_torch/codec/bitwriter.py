@@ -16,8 +16,12 @@ Two writing paths:
 Also: RBSP emulation prevention (00 00 0x -> 00 00 03 0x) and Annex-B NAL
 framing.
 
-Copy of ceracoder_tpu/codec/bitwriter.py (writer side only): the port
-keeps its own copy so that it imports nothing of the JAX package.
+Reference behavior being replicated: the bitstream layers that ceracoder
+delegated to x264/GStreamer (reference repo has no bitstream writer of its
+own; see SURVEY.md §2.2).
+
+Copy of ceracoder_tpu/codec/bitwriter.py: the port keeps its own copy so
+that it imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -71,6 +75,12 @@ class BitWriter:
             self.u(0, pad)
         return self
 
+    def byte_align_zero(self) -> "BitWriter":
+        pad = (-self._nbits) % 8
+        if pad:
+            self.u(0, pad)
+        return self
+
     def arrays(self) -> tuple[np.ndarray, np.ndarray]:
         """Return (values, lengths) arrays suitable for pack_bits."""
         if not self._bits:
@@ -99,7 +109,8 @@ def ue_code(v: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
 def se_code(v: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     """Vectorized signed exp-Golomb."""
     v = np.asarray(v, dtype=np.int64)
-    return ue_code(np.where(v > 0, 2 * v - 1, -2 * v))
+    mapped = np.where(v > 0, 2 * v - 1, -2 * v)
+    return ue_code(mapped)
 
 
 def pack_bits(values: np.ndarray, lengths: np.ndarray) -> bytes:
@@ -172,3 +183,64 @@ def nal_unit(nal_ref_idc: int, nal_unit_type: int, rbsp: bytes,
     header = bytes([(nal_ref_idc << 5) | nal_unit_type])
     start = b"\x00\x00\x00\x01" if long_start_code else b"\x00\x00\x01"
     return start + header + emulation_prevent(rbsp)
+
+
+class BitReader:
+    """MSB-first bit reader (for tests and the verification decoder)."""
+
+    def __init__(self, data: bytes) -> None:
+        self._bits = np.unpackbits(np.frombuffer(data, dtype=np.uint8))
+        self.pos = 0
+
+    @property
+    def remaining(self) -> int:
+        return self._bits.size - self.pos
+
+    def u(self, nbits: int) -> int:
+        if nbits == 0:
+            return 0
+        if self.pos + nbits > self._bits.size:
+            raise EOFError("bitstream exhausted")
+        chunk = self._bits[self.pos:self.pos + nbits]
+        self.pos += nbits
+        return int(chunk @ (1 << np.arange(nbits - 1, -1, -1, dtype=np.int64)))
+
+    def peek(self, nbits: int) -> int:
+        save = self.pos
+        try:
+            return self.u(min(nbits, self.remaining)) << max(0, nbits - (self._bits.size - save))
+        finally:
+            self.pos = save
+
+    def flag(self) -> int:
+        return self.u(1)
+
+    def ue(self) -> int:
+        zeros = 0
+        while self.u(1) == 0:
+            zeros += 1
+            if zeros > 32:
+                raise ValueError("invalid exp-Golomb code")
+        return (1 << zeros) - 1 + (self.u(zeros) if zeros else 0)
+
+    def se(self) -> int:
+        k = self.ue()
+        return (k + 1) // 2 if k % 2 else -(k // 2)
+
+
+def strip_emulation(data: bytes) -> bytes:
+    """Remove emulation_prevention_three_bytes from an RBSP payload."""
+    arr = np.frombuffer(data, dtype=np.uint8)
+    if arr.size < 3:
+        return data
+    is_ep = np.zeros(arr.size, dtype=bool)
+    i = 2
+    n = arr.size
+    a = arr
+    while i < n:
+        if a[i] == 3 and a[i - 1] == 0 and a[i - 2] == 0:
+            is_ep[i] = True
+            i += 3  # the 03 byte cannot begin a new zero pair
+        else:
+            i += 1
+    return arr[~is_ep].tobytes()

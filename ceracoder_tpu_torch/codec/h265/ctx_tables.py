@@ -136,3 +136,9 @@ def build_slice_contexts(qp: int, init_type: int):
         offsets[name] = len(states)
         states.extend(init_context(v, qp) for v in table[init_type])
     return np.array(states, np.uint8), offsets
+
+
+def build_i_slice_contexts(qp: int):
+    """Packed context states for an I slice at the given QP, plus the
+    offset of each element in the context array."""
+    return build_slice_contexts(qp, 0)

@@ -8,12 +8,13 @@ lands. Replaces the parameter-set generation inside the reference's
 external HEVC encoder elements (reference: pipeline/ *h265*;
 SURVEY.md §2.2).
 
-Copy of ceracoder_tpu/codec/h265/syntax.py, cut to the port's
-operating points: the port keeps its own copy so that it imports
-nothing of the JAX package. Those are low-delay I/P or IBPBP (one
-non-reference B between references), no PCM, the inter TU split
-optional, in-loop deblocking on, SAO optional, and one tile per CTB row
-in a single slice.
+Copy of ceracoder_tpu/codec/h265/syntax.py: the port keeps its own
+copy so that it imports nothing of the JAX package. `HevcParams`'
+defaults are the device encoder's operating point (no PCM, in-loop
+deblocking on, one tile per CTB row in a single slice); the host
+reference encoders (encoder.py, rowslice.py) set PCM, deblocking and
+tiles explicitly. A B slice's forward reference is always the next POC
+(one non-reference B between references).
 """
 
 from __future__ import annotations
@@ -72,6 +73,14 @@ class HevcParams:
     # low-delay I/P streams; 1 / 2 with one B between references)
     max_reorder: int = 0
     max_dpb_minus1: int = 1
+    # 16x16 I_PCM CUs (the lossless PCM encoder)
+    pcm_enabled: bool = False
+    # in-loop deblocking (off in the raster reference encoders)
+    deblock: bool = True
+    # one tile per CTB row in a single slice (entry-point offsets: the
+    # rows code independently); off in the raster reference encoders,
+    # whose picture is one slice
+    tile_rows: bool = True
     # sample adaptive offset (frame post-pass after deblocking)
     sao: bool = False
     # RD-chosen TU split for inter CUs (4x8x8 luma + 4x4 chroma)
@@ -79,11 +88,8 @@ class HevcParams:
 
     @property
     def tiles(self) -> bool:
-        """One tile per CTB row in a single slice (entry-point offsets
-        instead of per-row slice headers: the same row independence,
-        ~10 bytes/row less overhead); a one-row picture is one plain
-        slice."""
-        return self.pic_height_ctbs > 1
+        """Tile rows in use: a one-row picture is one plain slice."""
+        return self.tile_rows and self.pic_height_ctbs > 1
 
     @property
     def ctb(self) -> int:
@@ -157,7 +163,13 @@ def write_sps(p: HevcParams) -> bytes:
     w.flag(0)       # scaling_list_enabled_flag
     w.flag(0)       # amp_enabled_flag
     w.flag(p.sao)   # sample_adaptive_offset_enabled_flag
-    w.flag(0)       # pcm_enabled_flag
+    w.flag(p.pcm_enabled)
+    if p.pcm_enabled:
+        w.u(7, 4)   # pcm_sample_bit_depth_luma_minus1
+        w.u(7, 4)   # pcm_sample_bit_depth_chroma_minus1
+        w.ue(1)     # log2_min_pcm_luma_coding_block_size_minus3: 16
+        w.ue(0)     # log2_diff_max_min_pcm_luma_coding_block_size
+        w.flag(1)   # pcm_loop_filter_disabled_flag
     w.ue(0)         # num_short_term_ref_pic_sets
     w.flag(0)       # long_term_ref_pics_present_flag
     w.flag(0)       # sps_temporal_mvp_enabled_flag
@@ -199,9 +211,10 @@ def write_pps(p: HevcParams) -> bytes:
     w.flag(1)       # pps_loop_filter_across_slices_enabled_flag
     w.flag(1)       # deblocking_filter_control_present_flag
     w.flag(0)       # deblocking_filter_override_enabled_flag
-    w.flag(0)       # pps_deblocking_filter_disabled_flag
-    w.se(0)         # pps_beta_offset_div2
-    w.se(0)         # pps_tc_offset_div2
+    w.flag(0 if p.deblock else 1)  # pps_deblocking_filter_disabled_flag
+    if p.deblock:
+        w.se(0)     # pps_beta_offset_div2
+        w.se(0)     # pps_tc_offset_div2
     w.flag(0)       # pps_scaling_list_data_present_flag
     w.flag(0)       # lists_modification_present_flag
     w.ue(0)         # log2_parallel_merge_level_minus2
@@ -254,10 +267,10 @@ def slice_header_bits(p: HevcParams, idr: bool = True,
         w.ue(3)             # five_minus_max_num_merge_cand -> 2 cands
     # (no deblocking override)
     w.se(qp - 26)   # slice_qp_delta
-    # present when the PPS enables cross-slice filtering and SAO is on
-    # or deblocking is not disabled (spec 7.3.6.1): deblocking is always
-    # on here, so `p.deblock or p.sao` always holds
-    w.flag(1)       # slice_loop_filter_across_slices_enabled_flag
+    if p.deblock or p.sao:
+        # present when the PPS enables cross-slice filtering and (SAO
+        # is on or deblocking is not disabled), spec 7.3.6.1
+        w.flag(1)   # slice_loop_filter_across_slices_enabled_flag
     if p.tiles:
         # entry points of tiles 2..N (spec 7.4.7.1): sizes of the
         # coded substreams INCLUDING emulation prevention bytes

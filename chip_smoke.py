@@ -146,7 +146,19 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    (b) the first 10 access units of (c)'s healthy stream through
    NativeTsMuxer + NativeTsPacker and the Python TsMuxer + TsPacker,
    byte for byte; NativeSrtClient refuses with "libsrt unavailable"
-   where libsrt does not load, else sends to a loopback listener.
+   where libsrt does not load, else sends to a loopback listener;
+17. the host reference codec on the card's streams: (a) phase 10's
+   H264Encoder codes 1 IDR + 9 P frames of the device test pattern at
+   1920x1088 (K2 and K3 every frame); the port's walk_stream and
+   H264SliceParser parse every slice, each one MB row consumed to
+   within 2 bytes; every frame has 8,160 MBs, every IDR MB is intra,
+   and each P frame's parsed intra MBs equal the encoder's own count
+   (IntraCount); prints the MB types per frame type and the parse
+   seconds. (b) phase 6's H265DeviceEncoder codes the first IDR and P
+   frame (K4 once); the numpy H265RowEncoder(native_entropy=False),
+   i.e. compute_intra_rows / compute_p_rows and the Python CABAC
+   entropy_rows, codes the same frames copied to the host to the same
+   parameter sets and NAL bytes; prints those stages' seconds.
 
 The native libraries (native/src: the HEVC entropy stage, the H.264
 CABAC row coder, the balancer core, the TS muxer and packer, the SRT
@@ -2872,6 +2884,176 @@ def phase_supervisor(tag: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the host reference codec checks the card's 1080p streams
+# ---------------------------------------------------------------------------
+
+# the parser's MB type names, as the H.264 spec names them
+MB_TYPE_NAMES = {"I_16x16": "I_16x16", "I_4x4": "I_NxN",
+                 "P_16x16": "P_L0_16x16", "P_Skip": "P_Skip"}
+
+
+def parse_h264_frames(data: bytes, mbw: int, mbh: int) -> list:
+    """Every slice of an Annex-B CABAC stream through the port's walker
+    and decode twin; each slice must be one MB row whose payload the
+    parser consumes to within 2 bytes (the bound of the JAX suite's
+    x264 walk). Returns per frame its IDR flag and MB records."""
+    from ceracoder_tpu_torch.codec.h264.cabac_dec import H264SliceParser
+    from ceracoder_tpu_torch.codec.h264.parse import walk_stream
+
+    frames = []
+    for sh, payload, _ in walk_stream(data):
+        if sh.first_mb == 0:
+            frames.append({"idr": sh.idr, "mbs": []})
+        check(bool(frames) and sh.first_mb == len(frames[-1]["mbs"]),
+              f"slice at MB {sh.first_mb} out of order")
+        parser = H264SliceParser(payload, sh.qp, sh.slice_type == 2, mbw,
+                                 mbh, first_mb=sh.first_mb,
+                                 cabac_init_idc=sh.cabac_init_idc)
+        mbs = parser.parse()
+        left = len(payload) - parser.consumed_bytes()
+        check(0 <= left <= 2, f"frame {len(frames) - 1}, slice at MB "
+              f"{sh.first_mb}: {left} of {len(payload)} payload bytes left "
+              "after the parse")
+        check(len(mbs) == mbw, f"slice at MB {sh.first_mb} holds "
+              f"{len(mbs)} MBs, want one row of {mbw}")
+        frames[-1]["mbs"] += mbs
+    return frames
+
+
+def reference_h264(tag: str, w: int = 1920, h: int = 1088) -> dict:
+    """(a) Phase 10's CABAC encoder codes 1 IDR + 9 P frames at 1080p on
+    the card; the port's stream walker and decode twin parse every
+    slice. Every frame has all its MBs, every IDR MB is intra, and each
+    P frame's parsed intra MBs are the encoder's own count."""
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+    from ceracoder_tpu_torch.codec.h264.encoder import H264Encoder
+
+    n = 10
+    mbw, mbh = w // 16, h // 16
+    src = DeviceTestPatternSource(w, h, texture=6)
+    enc = H264Encoder(w, h, qp=28, gop=60)
+    intra = IntraCount()
+    reset_launches()
+    t = time.perf_counter()
+    try:
+        coded = [p.result() for p in enc.encode_run_async(
+            source=src, indices=range(n))]
+        torch.cuda.synchronize()
+    finally:
+        intra.close()
+    encode_s = time.perf_counter() - t
+    launches = read_launches()
+    check([f.keyframe for f in coded] == [True] + [False] * (n - 1),
+          "GOP structure (1 IDR + 9 P)")
+    check(launches["merge_windows"] == 0
+          and launches["h264_deblock_rows"] >= n
+          and launches["h264_intra16_cols"] >= n,
+          f"kernel launches {launches} for {n} CABAC frames")
+    check(len(intra.per_p) == n - 1, f"intra MB counts of {len(intra.per_p)}"
+          f" P frames, want {n - 1}")
+    data = enc.headers() + b"".join(f.data for f in coded)
+    t = time.perf_counter()
+    frames = parse_h264_frames(data, mbw, mbh)
+    parse_s = time.perf_counter() - t
+    check(len(frames) == n, f"{len(frames)} frames parsed, want {n}")
+    check([f["idr"] for f in frames] == [True] + [False] * (n - 1),
+          "parsed IDR flags")
+    types = {"I": {}, "P": {}}
+    parsed_intra = []
+    for i, f in enumerate(frames):
+        mbs = f["mbs"]
+        check(len(mbs) == mbw * mbh, f"frame {i}: {len(mbs)} MBs, want "
+              f"{mbw * mbh}")
+        n_intra = sum(1 for m in mbs if m["intra"])
+        if f["idr"]:
+            check(n_intra == mbw * mbh, f"IDR: {n_intra} intra MBs")
+        else:
+            parsed_intra.append(n_intra)
+        kind = types["I" if f["idr"] else "P"]
+        for m in mbs:
+            name = MB_TYPE_NAMES.get(m["mb_type"], m["mb_type"])
+            kind[name] = kind.get(name, 0) + 1
+    check(parsed_intra == intra.per_p, f"parsed intra MBs per P frame "
+          f"{parsed_intra}, the encoder's {intra.per_p}")
+    out = {"frames": n, "bytes": len(data), "slices": n * mbh,
+           "mbs_per_frame": mbw * mbh, "mb_types": types,
+           "intra_mbs_per_p": parsed_intra, "encode_seconds": encode_s,
+           "parse_seconds": parse_s, "launches": launches}
+    print(f"{tag} phase 17 (a) H.264 CABAC {w}x{h}, {n} frames ({len(data)} "
+          f"B, {n * mbh} slices) parsed by the port's walker and decode "
+          f"twin in {parse_s:.3f} s, every payload to within 2 bytes: MB "
+          f"types I frame {types['I']}, P frames {types['P']}; intra MBs "
+          f"per P frame {parsed_intra} (= the encoder's); encode "
+          f"{encode_s:.3f} s; kernel launches {launches}")
+    return out
+
+
+def reference_hevc(tag: str, w: int = 1920, h: int = 1088) -> dict:
+    """(b) Phase 6's encoder codes the first IDR and P frame of the
+    device test pattern on the card; the numpy row encoder with the
+    Python CABAC codes the same frames, copied to the host, to the same
+    NAL bytes."""
+    import ceracoder_tpu_torch.codec.h265.rowslice as rows
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+
+    src = DeviceTestPatternSource(w, h, texture=6)
+    enc = H265DeviceEncoder(w, h, qp=30, gop=60)
+    reset_launches()
+    coded = [p.result() for p in enc.encode_run_async(source=src,
+                                                      indices=range(2))]
+    torch.cuda.synchronize()
+    launches = read_launches()
+    check_hevc_launches(launches, 1)
+    planes = [tuple(p.cpu().numpy() for p in src.frame(i)) for i in range(2)]
+    spec = rows.H265RowEncoder(w, h, qp=30, gop=60, native_entropy=False)
+    check(spec.headers() == enc.headers(), "HEVC parameter sets differ")
+    timed = Timed()
+    names = ("compute_intra_rows", "compute_p_rows", "entropy_rows")
+    real = {k: getattr(rows, k) for k in names}
+    for k in names:
+        setattr(rows, k, timed.wrap(k, real[k]))
+    timed.on = True
+    t = time.perf_counter()
+    try:
+        for i, (f, d) in enumerate(zip(planes, coded)):
+            data, idr = spec.encode_frame(*f)
+            check(idr == d.keyframe, f"frame {i}: IDR flags differ")
+            if data != d.data:
+                at = next((j for j, (a, b) in enumerate(zip(data, d.data))
+                           if a != b), min(len(data), len(d.data)))
+                check(False, f"frame {i}: the numpy spec's {len(data)} B "
+                      f"and the card's {len(d.data)} B differ from byte "
+                      f"{at}")
+    finally:
+        for k in names:
+            setattr(rows, k, real[k])
+    spec_s = time.perf_counter() - t
+    out = {"bytes": [len(d.data) for d in coded], "spec_seconds": spec_s,
+           **{f"{k}_seconds": timed.secs[k] for k in names},
+           "launches": launches}
+    print(f"{tag} phase 17 (b) HEVC {w}x{h} IDR + P: the numpy row encoder "
+          f"with the Python CABAC equals the card's NAL bytes "
+          f"({out['bytes']} B); compute_intra_rows "
+          f"{timed.secs['compute_intra_rows']:.3f} s, compute_p_rows "
+          f"{timed.secs['compute_p_rows']:.3f} s, entropy_rows "
+          f"{timed.secs['entropy_rows']:.3f} s (both frames), the spec "
+          f"{spec_s:.3f} s in all; kernel launches {launches}")
+    return out
+
+
+def phase_reference_codec(tag: str) -> dict:
+    """Phase 17: (a) the H.264 CABAC stream parsed, (b) the HEVC numpy
+    spec against the card's bytes."""
+    t0 = time.perf_counter()
+    out = {"h264": reference_h264(tag), "hevc": reference_hevc(tag)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"{tag} phase 17 (the host reference codec) took "
+          f"{out['seconds']:.1f} s")
+    return out
+
+
 DESIGNS = {
     "h264_deblock": "one-cta-per-mb-row, luma and chroma warps, "
                     "cp.async chunk ring",
@@ -3068,6 +3250,8 @@ def main() -> int:
     print(json.dumps({"parallel_path": par}))
     sup = phase_supervisor(tag)
     print(json.dumps({"supervisor_path": sup}))
+    ref = phase_reference_codec(tag)
+    print(json.dumps({"reference_codec": ref}))
 
     def launches(name):
         return {"launches_cavlc_path": main_out["launches"][name],

@@ -5,14 +5,11 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
+import ceracoder_tpu.codec.h264.device_entropy as J
 from ceracoder_tpu.codec.bitwriter import pack_bits
-from ceracoder_tpu.codec.h264.device_entropy import (
-    encode_blocks_jax,
-    neighbor_nc_jax,
-)
-from ceracoder_tpu.codec.h264.device_entropy import pack_rows as j_pack_rows
 from ceracoder_tpu_torch.codec.h264.device_entropy import (
     encode_blocks,
     finalize_rows,
@@ -24,6 +21,12 @@ from ceracoder_tpu_torch.ops.bitpack import i32_to_u32
 # one intra-op thread: pytest-xdist workers share the cores, and at
 # these frame sizes torch's extra threads only spin
 torch.set_num_threads(1)
+
+# the JAX references under jax.jit, as the JAX encoder runs them: called
+# eagerly, each primitive compiles at each shape apart
+encode_blocks_jax = jax.jit(J.encode_blocks_jax, static_argnums=2)
+neighbor_nc_jax = jax.jit(J.neighbor_nc_jax, static_argnums=1)
+j_pack_rows = jax.jit(J.pack_rows, static_argnums=2)
 
 
 @pytest.mark.parametrize("max_coeff", [16, 15, 4])

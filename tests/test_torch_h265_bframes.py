@@ -96,6 +96,11 @@ class EntropySpy:
 # ---------------------------------------------------------------------------
 
 _j_inter_tus = jax.jit(J._code_inter_tus_dev)
+# the small JAX references under jax.jit too: called eagerly, each
+# primitive compiles at each shape apart
+_j_tb_bits = jax.jit(J._tb_bits_dev)
+_j_bi_combine = jax.jit(J._bi_combine)
+_j_pack = jax.jit(J._pack_run_streams, static_argnums=(1, 2, 3))
 
 
 def _inter_tu_inputs(seed: int, r: int = 24):
@@ -135,7 +140,7 @@ def test_tb_bits_and_inter_tus_match_jax(qp):
     lv = rng.integers(-20, 21, (40, 8, 8))
     lv[rng.random(lv.shape) < 0.7] = 0
     lv[0] = 0
-    same(T._tb_bits_dev(t(lv)), J._tb_bits_dev(jnp.asarray(lv)))
+    same(T._tb_bits_dev(t(lv)), _j_tb_bits(jnp.asarray(lv)))
     same(T._unquads(T._quads(t(lv[:4]))), lv[:4])
 
 
@@ -158,10 +163,10 @@ def test_bi_combine_at_the_extremes():
     ext = np.array([-30855, -8192, -64, -1, 0, 1, 63, 64, 8191, 16320,
                     30855], np.int16)
     a, b = np.meshgrid(ext, ext)
-    same(T._bi_combine(t(a), t(b)), J._bi_combine(jnp.asarray(a),
+    same(T._bi_combine(t(a), t(b)), _j_bi_combine(jnp.asarray(a),
                                                   jnp.asarray(b)))
     same(T._bi_combine(t(a.astype(np.int32)), t(b.astype(np.int32))),
-         J._bi_combine(jnp.asarray(a, jnp.int32), jnp.asarray(b, jnp.int32)))
+         _j_bi_combine(jnp.asarray(a, jnp.int32), jnp.asarray(b, jnp.int32)))
 
 
 @pytest.mark.parametrize("qp", [24, 32, 40])
@@ -260,7 +265,7 @@ def test_packed_b_row_matches_jax_layout(n_ctb, chunk):
         jd[k] = jd[k].astype(jnp.int8)
     jd.update(pos=jnp.asarray(pos), val=jnp.asarray(val),
               counts=jnp.asarray(counts, jnp.uint16), nnz=jnp.asarray(nnz))
-    jax_rows = J._pack_run_streams(jd, 1, with_mv1=True, chunk=chunk)
+    jax_rows = _j_pack(jd, 1, True, chunk)
     same(port["packed"], jax_rows["packed"])
     same(port["lv_rest"], jax_rows["lv_chunks"][0][:, :512])
 

@@ -3,6 +3,8 @@ their JAX twins in ceracoder_tpu/ops/h265.py, on the CPU: the same
 numpy inputs, made from a seed, through both; every comparison is
 exact (the codec is integer-exact)."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +40,15 @@ def _f64(m):
     return torch.tensor(np.asarray(m, np.float64))
 
 
+@functools.cache
+def jit(fn, *static):
+    """The JAX reference `fn` under one jax.jit per module (the
+    arguments at the `static` positions fixed), as the JAX encoder runs
+    it: called eagerly, it compiles each primitive at each shape
+    apart."""
+    return jax.jit(fn, static_argnums=static)
+
+
 @pytest.mark.parametrize("t_np,log2n", [(T16, 4), (T8, 3), (T4, 2)])
 def test_transforms_extreme_ranges(t_np, log2n):
     """Forward and inverse transforms at random and worst-case operand
@@ -49,12 +60,12 @@ def test_transforms_extreme_ranges(t_np, log2n):
     res[0], res[1] = 255, -255
     res[2, :, ::2], res[2, :, 1::2] = 255, -255
     same(T._fwd_transform(t(res), _f64(t_np), log2n),
-         J._fwd_transform(jnp.asarray(res), tj, log2n))
+         jit(J._fwd_transform, 2)(jnp.asarray(res), tj, log2n))
     coef = rng.integers(-32768, 32768, (64, n, n)).astype(np.int32)
     coef[0], coef[1] = 32767, -32768
     coef[2, ::2], coef[2, 1::2] = 32767, -32768
     same(T._inv_transform(t(coef), _f64(t_np), log2n),
-         J._inv_transform(jnp.asarray(coef), tj, log2n))
+         jit(J._inv_transform, 2)(jnp.asarray(coef), tj, log2n))
 
 
 @pytest.mark.parametrize("qp", [0, 22, 30, 37, 51])
@@ -63,17 +74,19 @@ def test_quant_and_code_tu(qp):
     coef = rng.integers(-40000, 40000, (32, 16, 16)).astype(np.int32)
     for intra in (True, False):
         same(T._quantize(t(coef), qp, 4, intra),
-             J._quantize(jnp.asarray(coef), qp, 4, intra))
+             jit(J._quantize, 2, 3)(jnp.asarray(coef), qp, 4, intra))
     lv = rng.integers(-3000, 3000, (32, 8, 8)).astype(np.int32)
-    same(T._dequantize(t(lv), qp, 3), J._dequantize(jnp.asarray(lv), qp, 3))
+    same(T._dequantize(t(lv), qp, 3),
+         jit(J._dequantize, 2)(jnp.asarray(lv), qp, 3))
     src = rng.integers(0, 256, (40, 16, 16)).astype(np.int32)
     pred = rng.integers(0, 256, (40, 16, 16)).astype(np.int32)
     for tm, n, log2n in ((T16, 16, 4), (T8, 8, 3)):
         s, p = src[:, :n, :n], pred[:, :n, :n]
         for intra in (True, False):
             got = T._code_tu(t(s), t(p), qp, _f64(tm), log2n, intra)
-            want = J._code_tu(jnp.asarray(s), jnp.asarray(p), qp,
-                              jnp.asarray(tm, jnp.int32), log2n, intra)
+            want = jit(J._code_tu, 4, 5)(
+                jnp.asarray(s), jnp.asarray(p), qp,
+                jnp.asarray(tm, jnp.int32), log2n, intra)
             for a, b in zip(got, want):
                 same(a, b)
 
@@ -83,10 +96,10 @@ def test_satd_matches_butterflies():
     d = rng.integers(-255, 256, (6, 5, 16, 16)).astype(np.int32)
     d[0, 0], d[0, 1] = 255, -255
     got = T._satd8_blocks(t(d))
-    same(got, J._satd8_blocks_bf(jnp.asarray(d)))
-    same(got, J._satd8_t(jnp.asarray(d.transpose(2, 3, 0, 1))))
+    same(got, jit(J._satd8_blocks_bf)(jnp.asarray(d)))
+    same(got, jit(J._satd8_t)(jnp.asarray(d.transpose(2, 3, 0, 1))))
     plane = rng.integers(-255, 256, (H, W)).astype(np.int32)
-    same(T._satd8_frame(t(plane)), J._satd8_frame(jnp.asarray(plane)))
+    same(T._satd8_frame(t(plane)), jit(J._satd8_frame)(jnp.asarray(plane)))
 
 
 @pytest.mark.parametrize("n,luma", [(16, True), (8, False)])
@@ -96,7 +109,7 @@ def test_intra_preds(n, luma):
     left[0] = 0
     left[1] = 255
     same(T._intra_preds(t(left), n, luma),
-         J._intra_preds(jnp.asarray(left), n, luma))
+         jit(J._intra_preds, 1, 2)(jnp.asarray(left), n, luma))
 
 
 def test_argmin_keeps_first_of_tied_minima():
@@ -147,10 +160,11 @@ def test_motion_chain():
     y = frames[1][0].astype(np.int32)
     pad = J.LUMA_SRC_PAD
     ref_pad = np.pad(ref[0].astype(np.int32), pad, mode="edge")
-    cur_h = np.asarray(J._down2_dev(jnp.asarray(y))).astype(np.int16)
-    ref_h = np.asarray(J._down2_dev(jnp.asarray(
+    down2 = jit(J._down2_dev)
+    cur_h = np.asarray(down2(jnp.asarray(y))).astype(np.int16)
+    ref_h = np.asarray(down2(jnp.asarray(
         ref_pad[pad - 8:pad + H + 8, pad - 8:pad + W + 8]))).astype(np.int16)
-    same(T._down2_dev(t(y)), J._down2_dev(jnp.asarray(y)))
+    same(T._down2_dev(t(y)), down2(jnp.asarray(y)))
     same(T._coarse_search_dev(t(cur_h), t(ref_h)),
          jax.jit(J._coarse_search_dev)(cur_h, ref_h))
 
@@ -174,11 +188,11 @@ def test_window_canvas_matches_both_layouts():
     ref_pad = rng.integers(0, 256, (H + 26, W + 26)).astype(np.int32)
     off = rng.integers(-7, 8, (H // 16, W // 16, 2)).astype(np.int32)
     got = T._window_canvas_dev(t(ref_pad), t(off), 16, 26, -5, 13)
-    same(got, J._window_canvas_dev(jnp.asarray(ref_pad), jnp.asarray(off),
-                                   16, 26, -5, -7, 7, 13))
-    same(got.permute(2, 3, 0, 1),
-         J._window_canvas_t(jnp.asarray(ref_pad), jnp.asarray(off), 16, 26,
-                            -5, -7, 7, 13))
+    ints = (16, 26, -5, -7, 7, 13)
+    same(got, jit(J._window_canvas_dev, *range(2, 8))(
+        jnp.asarray(ref_pad), jnp.asarray(off), *ints))
+    same(got.permute(2, 3, 0, 1), jit(J._window_canvas_t, *range(2, 8))(
+        jnp.asarray(ref_pad), jnp.asarray(off), *ints))
 
 
 def test_p_frame_core_motion_and_intra_fallback():
@@ -240,14 +254,14 @@ def _pack_both(levels, cap, chunk, rng):
     d.update(pos=pos[None], val=val[None], counts=counts[None],
              nnz=nnz[None])
     port = T._pack_run_streams(d, 1, chunk)
-    jpos, jval, jcounts, jnnz = J._compact_levels(
+    jpos, jval, jcounts, jnnz = jit(J._compact_levels, 3)(
         *(jnp.asarray(a) for a in levels), cap)
     jd = {k: jnp.asarray(a)[None] for k, a in meta.items()}
     jd["mode"] = jd["mode"].astype(jnp.int8)
     jd["mv"] = jd["mv"].astype(jnp.int8)
     jd.update(pos=jpos[None], val=jval[None],
               counts=jcounts.astype(jnp.uint16)[None], nnz=jnnz[None])
-    jax_rows = J._pack_run_streams(jd, 1, chunk=chunk)
+    jax_rows = jit(J._pack_run_streams, 1, 2, 3)(jd, 1, False, chunk)
     return (pos, val, counts, nnz), (jpos, jval, jcounts, jnnz), port, \
         jax_rows
 
@@ -305,7 +319,8 @@ def test_segment_caps_bind_in_jax_only(grid, density):
         levels[1][..., 0, 0] = 1
     cap = 1 << 20
     pos, val, counts, nnz = T._compact_levels(*(t(a) for a in levels), cap)
-    *_, jnnz = J._compact_levels(*(jnp.asarray(a) for a in levels), cap)
+    *_, jnnz = jit(J._compact_levels, 3)(*(jnp.asarray(a) for a in levels),
+                                         cap)
     assert int(jnnz) == cap + 1 and int(nnz) <= cap
     n = int(nnz)
     dense = densify_levels(counts.numpy(), pos.numpy()[:n], val.numpy()[:n])

@@ -36,6 +36,46 @@ def test_port_imports_no_jax():
     assert bad == []
 
 
+# the host reference codec's Python coders and numpy encoders: specs and
+# test twins, never a fallback of a production path
+REFERENCE_CODERS = {"H264RowCabac", "entropy_rows", "compute_intra_rows",
+                    "compute_p_rows", "compute_b_rows", "H265RowEncoder"}
+PRODUCTION = ("codec/h264/encoder.py", "codec/h264/cabac_assemble.py",
+              "codec/h265/device.py", "parallel/*.py", "app/*.py",
+              "ops/*.py")
+
+
+def _names(path):
+    """Every name a module defines, imports, reads or calls, attributes
+    too."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            yield node.name
+        elif isinstance(node, ast.Name):
+            yield node.id
+        elif isinstance(node, ast.Attribute):
+            yield node.attr
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            yield from (a.name.split(".")[-1] for a in node.names)
+
+
+def test_no_reference_coder_is_wired_as_a_fallback():
+    """No production module of the port imports or calls the Python
+    entropy coders (H264RowCabac, rowslice.entropy_rows) or the numpy
+    encoders (compute_*_rows, H265RowEncoder), lazily or not: a failed
+    native build or a full buffer raises instead."""
+    pkg = ROOT / "ceracoder_tpu_torch"
+    files = sorted({f for pat in PRODUCTION for f in pkg.glob(pat)})
+    assert len(files) > 15
+    bad = [(f.relative_to(ROOT).as_posix(), n) for f in files
+           for n in _names(f) if n in REFERENCE_CODERS]
+    assert bad == []
+    # the names are the reference modules' own, so the check bites
+    ref = {n for m in ("codec/h264/cabac.py", "codec/h265/rowslice.py")
+           for n in _names(pkg / m)}
+    assert REFERENCE_CODERS <= ref
+
+
 def test_every_kernel_source_is_built_through_cuda_build():
     """Each csrc/*.cu is one kernel: a wrapper loads it through
     utils/cuda_build.py's load_library (nvcc, keyed build into build/,
