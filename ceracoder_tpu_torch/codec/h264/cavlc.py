@@ -8,8 +8,10 @@ into a fixed 16-step loop over coefficient index, vectorized across
 blocks. Downstream, `bitwriter.pack_bits` concatenates the symbol streams
 with a prefix-sum scatter. No per-block Python loops anywhere.
 
-Copy of ceracoder_tpu/codec/h264/cavlc.py (encoder side only): the
-port's exact host fallback for frames that overflow the device packer.
+Copy of ceracoder_tpu/codec/h264/cavlc.py: the encoder is the port's
+exact host fallback for frames that overflow the device packer; the
+scalar decoder (`decode_block`) is its independent twin for round-trip
+tests, off every production path.
 """
 
 from __future__ import annotations
@@ -169,3 +171,107 @@ def encode_blocks(levels: np.ndarray, nc: np.ndarray,
         zeros_left = np.where(active, zeros_left - run_k, zeros_left)
 
     return vals, lens, total_coeff
+
+
+# ---------------------------------------------------------------------------
+# Reference scalar decoder (for round-trip tests and the verification
+# decoder) — deliberately independent code path from the encoder.
+# ---------------------------------------------------------------------------
+
+def _read_vlc(reader, len_tbl, bits_tbl):
+    """Read one code from a (len, bits) table pair; returns flat index."""
+    lens = np.asarray(len_tbl).reshape(-1)
+    bits = np.asarray(bits_tbl).reshape(-1)
+    code = 0
+    nbits = 0
+    for _ in range(32):
+        code = (code << 1) | reader.u(1)
+        nbits += 1
+        matches = np.nonzero((lens == nbits) & (bits == code))[0]
+        if matches.size:
+            return int(matches[0])
+    raise ValueError("invalid VLC code")
+
+
+def decode_block(reader, nc: int, max_coeff: int) -> np.ndarray:
+    """Decode one CAVLC residual block (spec 9.2) — scalar reference."""
+    if nc < 0:
+        idx = _read_vlc(reader, CHROMA_DC_COEFF_TOKEN_LEN,
+                        CHROMA_DC_COEFF_TOKEN_BITS)
+        tc, t1 = divmod(idx, 4)
+    else:
+        cls = 0 if nc < 2 else 1 if nc < 4 else 2 if nc < 8 else 3
+        if cls == 3:
+            code = reader.u(6)
+            if code == 3:
+                tc, t1 = 0, 0
+            else:
+                tc, t1 = code // 4 + 1, code % 4
+        else:
+            idx = _read_vlc(reader, COEFF_TOKEN_LEN[cls], COEFF_TOKEN_BITS[cls])
+            tc, t1 = divmod(idx, 4)
+
+    out = np.zeros(max_coeff, np.int64)
+    if tc == 0:
+        return out
+
+    levels = []
+    for _ in range(t1):
+        levels.append(-1 if reader.u(1) else 1)
+    suffix_len = 1 if tc > 10 and t1 < 3 else 0
+    for i in range(t1, tc):
+        prefix = 0
+        while reader.u(1) == 0:
+            prefix += 1
+            if prefix > 32:
+                raise ValueError("bad level prefix")
+        if suffix_len == 0 and prefix == 14:
+            suffix_size = 4
+        elif prefix >= 15:
+            suffix_size = prefix - 3
+        else:
+            suffix_size = suffix_len
+        suffix = reader.u(suffix_size) if suffix_size else 0
+        level_code = (min(15, prefix) << suffix_len) + suffix
+        if prefix >= 15 and suffix_len == 0:
+            level_code += 15
+        if prefix >= 16:
+            level_code += (1 << (prefix - 3)) - 4096
+        if i == t1 and t1 < 3:
+            level_code += 2
+        val = (level_code + 2) >> 1 if level_code % 2 == 0 else -((level_code + 1) >> 1)
+        levels.append(val)
+        if suffix_len == 0:
+            suffix_len = 1
+        if abs(val) > (3 << (suffix_len - 1)) and suffix_len < 6:
+            suffix_len += 1
+
+    if tc < max_coeff:
+        if max_coeff == 4:
+            idx = _read_vlc(reader, CHROMA_DC_TOTAL_ZEROS_LEN[tc - 1],
+                            CHROMA_DC_TOTAL_ZEROS_BITS[tc - 1])
+        else:
+            idx = _read_vlc(reader, TOTAL_ZEROS_LEN[tc - 1],
+                            TOTAL_ZEROS_BITS[tc - 1])
+        total_zeros = idx
+    else:
+        total_zeros = 0
+
+    runs = []
+    zeros_left = total_zeros
+    for i in range(tc - 1):
+        if zeros_left > 0:
+            tbl = min(zeros_left, 7) - 1
+            run = _read_vlc(reader, RUN_BEFORE_LEN[tbl], RUN_BEFORE_BITS[tbl])
+        else:
+            run = 0
+        runs.append(run)
+        zeros_left -= run
+    runs.append(zeros_left)
+
+    pos = -1 + tc + total_zeros  # position of highest-frequency coeff
+    for i in range(tc):
+        out[pos] = levels[i]
+        if i < tc - 1:
+            pos -= runs[i] + 1
+    return out

@@ -30,7 +30,12 @@ encode_run_pairs). A pair's overflowing P or B frame is coded from its
 dense levels like any other frame; the JAX encoder's host recompute of
 such a frame is not ported.
 
-Not ported (ROADMAP.md): the Python entropy spec.
+Not ported (ROADMAP.md): the JAX encoder's `deblock=False`,
+`tile_rows=False` and `native_entropy=False`. No caller sets the first
+two, so the encoder always deblocks and codes one tile per CTB row (the
+spec layer, codec/h265/rowslice.py: H265RowEncoder, entropy_rows and
+entropy_rows_native, takes both modes); the third codes with the Python
+entropy spec (entropy_rows), which stays off every production path.
 """
 
 from __future__ import annotations
@@ -97,9 +102,11 @@ class H265DeviceEncoder:
         self.sao = sao
         self.tu_split = tu_split
         self.bframes = 1 if bframes else 0
-        self.params = HevcParams(width=width, height=height, qp=qp, sao=sao,
+        self.params = HevcParams(width=width, height=height, qp=qp,
+                                 pcm_enabled=False, deblock=True,
                                  max_reorder=self.bframes,
                                  max_dpb_minus1=1 + self.bframes,
+                                 tile_rows=True, sao=sao,
                                  tu_split_inter=tu_split)
         self.pw = -(-width // CTB) * CTB
         self.ph = -(-height // CTB) * CTB

@@ -137,7 +137,8 @@ class H265IntraEncoder:
 
         self.width, self.height = width, height
         self.params = HevcParams(width=width, height=height, qp=qp,
-                                 deblock=False, tile_rows=False)
+                                 pcm_enabled=False, deblock=False,
+                                 tile_rows=False)
         self.qp = qp
         self.qp_c = chroma_qp(qp)
         ctb = self.params.ctb
@@ -311,8 +312,8 @@ class H265GopEncoder:
         self.width, self.height = width, height
         self.bframes = 1 if bframes else 0
         self.params = HevcParams(
-            width=width, height=height, qp=qp, deblock=False,
-            tile_rows=False, max_reorder=self.bframes,
+            width=width, height=height, qp=qp, pcm_enabled=False,
+            deblock=False, tile_rows=False, max_reorder=self.bframes,
             max_dpb_minus1=1 + self.bframes)
         self.qp = qp
         self.qp_c = chroma_qp(qp)
@@ -586,7 +587,8 @@ class H265GopEncoder:
         rec_v = np.zeros_like(v)
 
         hdr = slice_header_bits(p, idr=False, qp=qp, poc=poc,
-                                slice_type="B", ref_poc_delta=1)
+                                slice_type="B", ref_poc_delta=1,
+                                fwd_poc_delta=1)
         enc = CabacEncoder()
         hv, hl = hdr.arrays()
         for val, n in zip(hv.tolist(), hl.tolist()):

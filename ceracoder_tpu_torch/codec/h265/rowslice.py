@@ -1,4 +1,4 @@
-"""HEVC row-slice schedule: one slice (or one tile) per CTB row.
+"""HEVC row-slice schedule: one slice segment (or one tile) per CTB row.
 
 With every CTB row its own slice or tile, intra prediction, CABAC
 contexts and motion candidate derivations never cross rows, so rows
@@ -447,9 +447,12 @@ def densify_levels(counts: np.ndarray, pos: np.ndarray,
 
 def entropy_rows(p: HevcParams, arrays: dict, qp: int, idr: bool,
                  poc: int = 0, ref_poc_delta: int = 1,
-                 slice_type: str | None = None) -> list[bytes]:
-    """Encode every CTB row as an independent slice segment; returns
-    per-row RBSP bytes (caller wraps in NAL units). All syntax-level
+                 slice_type: str | None = None,
+                 fwd_poc_delta: int = 1) -> list[bytes]:
+    """Encode every CTB row as an independent slice segment, or with
+    `p.tiles` as one tile of a single slice; returns per-row RBSP bytes
+    (the tile slice's as one), which the caller wraps in NAL units. All
+    syntax-level
     decisions (MPM, cbf, skip/merge/AMVP) are derived here from the
     flat arrays, exactly as the C++ stage derives them. B slices
     (slice_type="B", arrays carry ``mv1``) code every inter CU
@@ -469,17 +472,16 @@ def entropy_rows(p: HevcParams, arrays: dict, qp: int, idr: bool,
     nch, ncw = is_intra.shape
     init_type = 0 if idr else (2 if is_b else 1)
     tiles = p.tiles
-    if not tiles and nch > 1:
-        raise ValueError("a picture of several CTB rows codes them as "
-                         "tile rows (HevcParams.tile_rows)")
     sao = arrays.get("sao") if p.sao else None
     out = []
     for cy in range(nch):
         enc = CabacEncoder()
-        if not tiles:                 # a one-row picture: one slice
+        if not tiles:                 # the row's slice segment header
             hdr = slice_header_bits(p, idr=idr, qp=qp, poc=poc,
                                     ref_poc_delta=ref_poc_delta,
-                                    slice_type=None if idr else st)
+                                    slice_type=None if idr else st,
+                                    fwd_poc_delta=fwd_poc_delta,
+                                    ctb_addr=cy * ncw)
             hv, hl = hdr.arrays()
             for val, n in zip(hv.tolist(), hl.tolist()):
                 enc.write_raw(int(val), int(n))
@@ -613,7 +615,7 @@ def entropy_rows(p: HevcParams, arrays: dict, qp: int, idr: bool,
         out.append(enc.to_bytes())
     if tiles:
         return [_assemble_tiles(p, out, qp, idr, poc, ref_poc_delta,
-                                None if idr else st)]
+                                None if idr else st, fwd_poc_delta)]
     return out
 
 
@@ -708,7 +710,7 @@ def _code_sao(enc, ctx, off, sao, cy: int, cx: int) -> None:
 
 def _assemble_tiles(p: HevcParams, bodies: list[bytes], qp: int,
                     idr: bool, poc: int, ref_poc_delta: int,
-                    slice_type: str | None) -> bytes:
+                    slice_type: str | None, fwd_poc_delta: int = 1) -> bytes:
     """One slice carrying one tile per CTB row: slice header with
     entry-point offsets (coded-domain byte sizes of tiles 0..N-2,
     spec 7.4.7.1 — emulation prevention bytes counted; regions never
@@ -718,6 +720,7 @@ def _assemble_tiles(p: HevcParams, bodies: list[bytes], qp: int,
     hdr = slice_header_bits(p, idr=idr, qp=qp, poc=poc,
                             ref_poc_delta=ref_poc_delta,
                             slice_type=slice_type,
+                            fwd_poc_delta=fwd_poc_delta,
                             tile_sizes=coded_sizes)
     return hdr.to_bytes() + b"".join(bodies)
 
@@ -735,12 +738,14 @@ _NATIVE_OFF_ORDER = (
 
 def entropy_rows_native(p: HevcParams, arrays: dict, qp: int, idr: bool,
                         poc: int = 0, ref_poc_delta: int = 1,
-                        slice_type: str | None = None) -> list[bytes]:
+                        slice_type: str | None = None,
+                        fwd_poc_delta: int = 1) -> list[bytes]:
     """Native (C++) entropy stage of an I, P or (``slice_type="B"``, with
-    arrays["mv1"]) B picture, byte-identical to `entropy_rows`: every
-    CTB row is one tile of a single slice (a one-row picture: one plain
-    slice); returns the slice's RBSP bytes, which the caller wraps in a
-    NAL unit. With `p.sao`,
+    arrays["mv1"]) B picture, byte-identical to `entropy_rows`: with
+    `p.tiles` every CTB row is one tile of a single slice, and the
+    slice's RBSP bytes come back as one; else every CTB row is a slice
+    segment of its own (a one-row picture: one plain slice), one RBSP
+    each. The caller wraps them in NAL units. With `p.sao`,
     arrays["sao"] holds each CTB's (nch, ncw, 3, 6) SAO parameters
     (ops/h265.py: sao_estimate_dev); with `p.tu_split_inter`,
     arrays["tu_split"] each CU's TU split flag."""
@@ -764,19 +769,22 @@ def entropy_rows_native(p: HevcParams, arrays: dict, qp: int, idr: bool,
         raise ValueError("entropy arrays do not share one CTB grid")
 
     # tile rows are headerless substreams (the slice header is assembled
-    # afterwards); a one-row picture's slice header goes in front
+    # afterwards); else each row's slice segment header goes in front of
+    # it, packed at a common stride
     if p.tiles:
         hdr_bytes = np.zeros((nch, 1), np.uint8)
         hdr_bits = np.zeros(nch, np.int32)
-    elif nch > 1:
-        raise ValueError("a picture of several CTB rows codes them as "
-                         "tile rows (HevcParams.tile_rows)")
     else:
-        hw = slice_header_bits(p, idr=idr, qp=qp, poc=poc,
-                               ref_poc_delta=ref_poc_delta,
-                               slice_type=slice_type)
-        hdr_bytes = np.frombuffer(hw.to_bytes(), np.uint8)[None].copy()
-        hdr_bits = np.array([hw.bit_length], np.int32)
+        hdrs = [slice_header_bits(p, idr=idr, qp=qp, poc=poc,
+                                  ref_poc_delta=ref_poc_delta,
+                                  slice_type=slice_type,
+                                  fwd_poc_delta=fwd_poc_delta,
+                                  ctb_addr=cy * ncw) for cy in range(nch)]
+        rows = [h.to_bytes() for h in hdrs]
+        hdr_bytes = np.zeros((nch, max(map(len, rows))), np.uint8)
+        for cy, b in enumerate(rows):
+            hdr_bytes[cy, :len(b)] = np.frombuffer(b, np.uint8)
+        hdr_bits = np.array([h.bit_length for h in hdrs], np.int32)
     stride = hdr_bytes.shape[1]
 
     ctx, off = build_slice_contexts(qp, init_type=0 if idr else
@@ -827,7 +835,7 @@ def entropy_rows_native(p: HevcParams, arrays: dict, qp: int, idr: bool,
         pos += sz
     if p.tiles:
         return [_assemble_tiles(p, res, qp, idr, poc, ref_poc_delta,
-                                slice_type)]
+                                slice_type, fwd_poc_delta)]
     return res
 
 
@@ -844,7 +852,8 @@ class H265RowEncoder:
     def __init__(self, width: int, height: int, qp: int = 32,
                  gop: int = 60, native_entropy: bool = True,
                  deblock: bool = True, bframes: int = 0,
-                 sao: bool = False, tu_split: bool = False):
+                 tile_rows: bool = True, sao: bool = False,
+                 tu_split: bool = False):
         if width % 2 or height % 2:
             raise ValueError("4:2:0 requires even dimensions (the "
                              "conformance window crops in 2-sample "
@@ -860,7 +869,7 @@ class H265RowEncoder:
                                  pcm_enabled=False, deblock=deblock,
                                  max_reorder=self.bframes,
                                  max_dpb_minus1=1 + self.bframes,
-                                 sao=sao,
+                                 tile_rows=tile_rows, sao=sao,
                                  tu_split_inter=tu_split)
         self.pw = -(-width // CTB) * CTB
         self.ph = -(-height // CTB) * CTB

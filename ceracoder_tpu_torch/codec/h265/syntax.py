@@ -9,12 +9,10 @@ external HEVC encoder elements (reference: pipeline/ *h265*;
 SURVEY.md §2.2).
 
 Copy of ceracoder_tpu/codec/h265/syntax.py: the port keeps its own
-copy so that it imports nothing of the JAX package. `HevcParams`'
-defaults are the device encoder's operating point (no PCM, in-loop
-deblocking on, one tile per CTB row in a single slice); the host
-reference encoders (encoder.py, rowslice.py) set PCM, deblocking and
-tiles explicitly. A B slice's forward reference is always the next POC
-(one non-reference B between references).
+copy so that it imports nothing of the JAX package. `HevcParams` has
+the JAX fields, order and defaults (PCM on, no deblocking, one slice
+per picture), so the same parameters write the same bytes in both
+packages; every encoder states its operating point explicitly.
 """
 
 from __future__ import annotations
@@ -69,18 +67,23 @@ class HevcParams:
     log2_min_cb: int = 4
     log2_min_tb: int = 2
     log2_max_tb: int = 4
+    pcm_enabled: bool = True
+    log2_min_pcm: int = 4
+    log2_max_pcm: int = 4
+    fps_num: int = 0
+    fps_den: int = 1
     # B-frame support: decoder reorder depth and DPB size (0 / 1 for
     # low-delay I/P streams; 1 / 2 with one B between references)
     max_reorder: int = 0
     max_dpb_minus1: int = 1
-    # 16x16 I_PCM CUs (the lossless PCM encoder)
-    pcm_enabled: bool = False
-    # in-loop deblocking (off in the raster reference encoders)
-    deblock: bool = True
-    # one tile per CTB row in a single slice (entry-point offsets: the
-    # rows code independently); off in the raster reference encoders,
-    # whose picture is one slice
-    tile_rows: bool = True
+    # in-loop deblocking (the row-slice encoders enable it; the raster
+    # encoders keep it off)
+    deblock: bool = False
+    # tile rows: one tile per CTB row in a single slice (entry-point
+    # offsets instead of per-row slice headers: the same row
+    # independence, about 10 bytes a row less); off, a picture of
+    # several CTB rows codes each row as its own slice segment
+    tile_rows: bool = False
     # sample adaptive offset (frame post-pass after deblocking)
     sao: bool = False
     # RD-chosen TU split for inter CUs (4x8x8 luma + 4x4 chroma)
@@ -88,7 +91,9 @@ class HevcParams:
 
     @property
     def tiles(self) -> bool:
-        """Tile rows in use: a one-row picture is one plain slice."""
+        """Tile rows in use. A one-row picture is one plain slice in
+        either mode: it has no second row to make a tile or a slice
+        segment of."""
         return self.tile_rows and self.pic_height_ctbs > 1
 
     @property
@@ -167,8 +172,8 @@ def write_sps(p: HevcParams) -> bytes:
     if p.pcm_enabled:
         w.u(7, 4)   # pcm_sample_bit_depth_luma_minus1
         w.u(7, 4)   # pcm_sample_bit_depth_chroma_minus1
-        w.ue(1)     # log2_min_pcm_luma_coding_block_size_minus3: 16
-        w.ue(0)     # log2_diff_max_min_pcm_luma_coding_block_size
+        w.ue(p.log2_min_pcm - 3)
+        w.ue(p.log2_max_pcm - p.log2_min_pcm)
         w.flag(1)   # pcm_loop_filter_disabled_flag
     w.ue(0)         # num_short_term_ref_pic_sets
     w.flag(0)       # long_term_ref_pics_present_flag
@@ -228,19 +233,27 @@ def slice_header_bits(p: HevcParams, idr: bool = True,
                       qp: int | None = None, poc: int = 0,
                       ref_poc_delta: int = 1,
                       slice_type: str | None = None,
+                      fwd_poc_delta: int = 1,
+                      ctb_addr: int = 0,
                       tile_sizes=None) -> BitWriter:
-    """The picture's slice segment header (spec 7.3.6.1) for an IDR
-    I-slice, a TRAIL_R P-slice referencing ``ref_poc_delta`` back, or
-    (``slice_type="B"``) a TRAIL_N B-slice also referencing the next
-    POC; ``tile_sizes`` are the coded sizes of tiles
-    0..N-2 (entry points). The caller appends the CABAC slice data."""
+    """Slice segment header (spec 7.3.6.1) for an IDR I-slice, a
+    TRAIL_R P-slice referencing ``ref_poc_delta`` back, or
+    (``slice_type="B"``) a TRAIL_N B-slice also referencing
+    ``fwd_poc_delta`` ahead. ``ctb_addr`` is the slice_segment_address
+    of a slice after the picture's first (one slice per CTB row): 0 is
+    the first slice. ``tile_sizes`` are the coded sizes of tiles 0..N-2
+    (entry points). The caller appends the CABAC slice data."""
     qp = p.qp if qp is None else qp
     st = slice_type or ("I" if idr else "P")
     w = BitWriter()
-    w.flag(1)       # first_slice_segment_in_pic_flag
+    w.flag(1 if ctb_addr == 0 else 0)  # first_slice_segment_in_pic_flag
     if idr:
         w.flag(0)   # no_output_of_prior_pics_flag
     w.ue(0)         # slice_pic_parameter_set_id
+    if ctb_addr != 0:
+        # slice_segment_address: u(v), v = Ceil(Log2(PicSizeInCtbsY))
+        n_ctbs = p.pic_width_ctbs * p.pic_height_ctbs
+        w.u(ctb_addr, max(1, (n_ctbs - 1).bit_length()))
     w.ue({"B": 0, "P": 1, "I": 2}[st])   # slice_type
     if not idr:
         # log2_max_pic_order_cnt_lsb_minus4 = 4 in the SPS -> 8 bits
@@ -252,9 +265,7 @@ def slice_header_bits(p: HevcParams, idr: bool = True,
         w.ue(ref_poc_delta - 1)   # delta_poc_s0_minus1[0]
         w.flag(1)           # used_by_curr_pic_s0_flag[0]
         if st == "B":
-            # delta_poc_s1_minus1[0]: the forward reference is the
-            # next POC (one B between references)
-            w.ue(0)
+            w.ue(fwd_poc_delta - 1)   # delta_poc_s1_minus1[0]
             w.flag(1)       # used_by_curr_pic_s1_flag[0]
         # (no temporal MVP flag: sps_temporal_mvp_enabled_flag = 0)
     if p.sao:
@@ -269,7 +280,8 @@ def slice_header_bits(p: HevcParams, idr: bool = True,
     w.se(qp - 26)   # slice_qp_delta
     if p.deblock or p.sao:
         # present when the PPS enables cross-slice filtering and (SAO
-        # is on or deblocking is not disabled), spec 7.3.6.1
+        # is on or deblocking is not disabled), spec 7.3.6.1; the
+        # frame-level post-pass filters across row slices
         w.flag(1)   # slice_loop_filter_across_slices_enabled_flag
     if p.tiles:
         # entry points of tiles 2..N (spec 7.4.7.1): sizes of the

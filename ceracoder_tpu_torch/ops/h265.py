@@ -35,8 +35,11 @@ The inter TU split and B frames are plain torch too: the split's
 second transform option (`_code_inter_tus_dev`), the second motion
 search of a B frame and the bi-prediction combine (`_b_frame_core`).
 
-Not ported: the legacy whole-frame motion search helpers, which no
-run path calls.
+The legacy whole-frame motion helpers (`motion_search_dev`,
+`_luma_qpel_planes`, `_uni_from_14`, `_mc_luma_qpel`, `_refine_subpel`,
+`_mc_chroma_qpel`) are plain torch too. No encoder path calls them: they
+are the JAX package's exhaustive +-8 search and whole-frame sub-pel
+refine, kept for the profiling tools and held equal to their JAX twins.
 """
 
 from __future__ import annotations
@@ -78,8 +81,19 @@ I32 = torch.int32
 _MODES = np.array([0, 1, 10, 26, 2, 3, 4, 5, 6, 7, 8, 9], np.int32)
 _ANGLES = (32, 26, 21, 17, 13, 9, 5, 2)        # modes 2..9 (Table 8-5)
 
-CHROMA_PAD = 8 // 2 + 2
-LUMA_SRC_PAD = 8 + 1 + 4         # qpel MVs floor to -9; 8-tap reach 4
+SEARCH_RANGE = 8                 # the legacy exhaustive search: +-8
+# center-outward shift enumeration of the legacy search (order = tie
+# order; ties prefer the shorter MV)
+_OFFS = sorted(((dy, dx)
+                for dy in range(-SEARCH_RANGE, SEARCH_RANGE + 1)
+                for dx in range(-SEARCH_RANGE, SEARCH_RANGE + 1)),
+               key=lambda o: (abs(o[0]) + abs(o[1]), abs(o[0])))
+_OFF_DY = np.array([o[0] for o in _OFFS], np.int32)
+_OFF_DX = np.array([o[1] for o in _OFFS], np.int32)
+
+CHROMA_PAD = SEARCH_RANGE // 2 + 2
+PLANE_PAD = SEARCH_RANGE + 1     # qpel MVs floor to -(range + 1) integer
+LUMA_SRC_PAD = PLANE_PAD + 4     # 8-tap DCT-IF reaches -3..+4
 
 # sub-pel refinement candidates (order = tie order)
 _SUB_DY = np.array([0, 0, 0, -1, 1, -1, -1, 1, 1], np.int32)
@@ -611,6 +625,139 @@ def _bi_combine(p0_14, p1_14):
     14-bit predictions. Casts to int32 first: the sum of two 14-bit
     values (up to +-61710) would wrap in int16."""
     return ((p0_14.to(I32) + p1_14 + 64) >> 7).clamp(0, 255)
+
+
+# ---------------------------------------------------------------------------
+# legacy whole-frame motion helpers (no encoder path calls them)
+# ---------------------------------------------------------------------------
+
+def motion_search_dev(cur, ref=None, ref_pad=None, pad: int | None = None):
+    """Exhaustive +-SEARCH_RANGE full-pel SAD search per 16x16 CU,
+    reproducing codec/h265/inter.py:motion_search bit for bit: packed
+    (sad << 9 | rank) keys, rank the offset's place in `_OFFS`, keep the
+    center-outward tie order. Either `ref` (edge-padded here) or
+    `ref_pad`, padded by `pad` (default SEARCH_RANGE, at least that) on
+    every side. Returns (nch, ncw, 2) int32 full-pel MVs (dy, dx)."""
+    h, w = cur.shape
+    nch, ncw = h // CTB, w // CTB
+    rng = SEARCH_RANGE
+    if ref_pad is None:
+        ref_pad, pad = _pad_edge(ref, rng, rng, rng, rng), rng
+    elif pad is None:
+        pad = rng
+    if pad < rng:
+        raise ValueError(f"reference padded by {pad}, need {rng}")
+    cur = cur.to(I32)
+    ref_pad = ref_pad.to(I32)
+    n = 2 * rng + 1
+    rank = np.empty((n, n), np.int32)          # (dy, dx) -> place in _OFFS
+    rank[_OFF_DY + rng, _OFF_DX + rng] = np.arange(len(_OFFS))
+    rank = torch.from_numpy(rank).to(cur.device)
+    best = None
+    for dy in range(-rng, rng + 1):
+        rows = ref_pad[pad + dy:pad + dy + h, pad - rng:pad + rng + w]
+        sh = rows.unfold(1, w, 1)                            # (h, n, w)
+        sad = (cur[:, None] - sh).abs().reshape(nch, CTB, n, ncw, CTB) \
+            .sum((1, 4), dtype=I32)                          # (nch, n, ncw)
+        keys = (sad << 9) | rank[dy + rng][None, :, None]   # sad <= 65280
+        keys = keys.amin(1)
+        best = keys if best is None else torch.minimum(best, keys)
+    k = (best & 511).long()
+    off = torch.from_numpy(np.stack([_OFF_DY, _OFF_DX], -1)).to(cur.device)
+    return off[k]
+
+
+def _luma_qpel_planes(ref_y_pad, out14: bool = False):
+    """All 16 (fy, fx) quarter-sample planes, index fy * 4 + fx, from a
+    LUMA_SRC_PAD-padded reference (8-tap DCT-IF, spec 8.5.4.2.2.1;
+    twin of codec/h265/inter.py:luma_qpel_planes). The planes are
+    PLANE_PAD-padded. `out14`: the 14-bit intermediates (acc >> 6) that
+    bi-prediction combines, instead of the rounded, clipped
+    uni-prediction samples. Sums stay below 2^22 in int32."""
+    src = ref_y_pad.to(I32)
+    hs, ws = src.shape
+    ho, wo = hs - 8, ws - 8
+    taps = [[int(x) for x in LUMA_FILTER[f]] for f in range(4)]
+    tmps = [sum(th[k] * src[:, 1 + k:1 + k + wo] for k in range(8))
+            for th in taps]
+    planes = []
+    for tv in taps:
+        for tmp in tmps:
+            acc = sum(tv[k] * tmp[1 + k:1 + k + ho] for k in range(8))
+            planes.append(acc >> 6 if out14
+                          else ((acc + 2048) >> 12).clamp(0, 255))
+    return torch.stack(planes)
+
+
+# the legacy path's name (as in JAX) for the 8-bit uni-prediction samples
+# of 14-bit intermediates
+_uni_from_14 = _pred8_from14
+
+
+def _cu_map(x, n: int):
+    """Per-CU values (nch, ncw) -> per-sample (nch * n, ncw * n)."""
+    return x.repeat_interleave(n, 0).repeat_interleave(n, 1)
+
+
+def _mc_luma_qpel(planes, mv_q, h: int, w: int):
+    """Whole-frame luma MC from the 16 qpel planes (_luma_qpel_planes)
+    for per-CU qpel MVs (nch, ncw, 2) within the planes' PLANE_PAD: one
+    gather."""
+    mv = mv_q.long()
+    sel = _cu_map((mv[..., 0] & 3) * 4 + (mv[..., 1] & 3), CTB)
+    ri = torch.arange(h, device=mv.device)[:, None] \
+        + _cu_map(mv[..., 0] >> 2, CTB) + PLANE_PAD
+    ci = torch.arange(w, device=mv.device)[None, :] \
+        + _cu_map(mv[..., 1] >> 2, CTB) + PLANE_PAD
+    return planes[sel, ri, ci]
+
+
+def _refine_subpel(cur, planes, mv_full, h: int, w: int):
+    """Half- then quarter-pel SATD refinement of full-pel MVs over
+    whole-frame MC (twin of codec/h265/inter.py:refine_subpel): 9
+    half-pel candidates, then the 5 plus-shape quarter-pel ones around
+    the winner; packed (cost << 4 | k) keys keep the strictly-better,
+    earlier-candidate-wins order. Returns (nch, ncw, 2) int32 qpel MVs."""
+    mv_q = mv_full.to(I32) * 4
+    cur = cur.to(I32)
+    sub_dy = torch.from_numpy(_SUB_DY).to(cur.device)
+    sub_dx = torch.from_numpy(_SUB_DX).to(cur.device)
+    for step in (2, 1):
+        keys = []
+        for k in range(9 if step == 2 else 5):
+            cand = mv_q + torch.tensor([int(_SUB_DY[k]) * step,
+                                        int(_SUB_DX[k]) * step],
+                                       dtype=I32, device=cur.device)
+            cost = _satd8_frame(cur - _mc_luma_qpel(planes, cand, h, w))
+            keys.append((cost << 4) | k)
+        k = (torch.stack(keys).amin(0) & 15).long()
+        mv_q = mv_q + torch.stack([sub_dy[k], sub_dx[k]], -1) * step
+    return mv_q
+
+
+def _mc_chroma_qpel(ref_c_pad, mv_q, hc: int, wc: int,
+                    out14: bool = False):
+    """Whole-frame chroma MC for per-CU luma qpel MVs (eighth-sample
+    chroma, spec 8.5.4.2.2.2): the 4x4 tap window of each sample with
+    its CU's fraction weights, over the CHROMA_PAD-padded plane (twin
+    of codec/h265/inter.py:mc_chroma_qpel / mc_chroma_qpel14). `out14`
+    as in _luma_qpel_planes."""
+    n = CTB // 2
+    p = ref_c_pad.to(I32)
+    mv = mv_q.long()
+    cf = _consts(p.device)["chroma_filter"]
+    ty = cf[_cu_map(mv[..., 0] & 7, n)]                      # (hc, wc, 4)
+    tx = cf[_cu_map(mv[..., 1] & 7, n)]
+    ri = torch.arange(hc, device=p.device)[:, None] \
+        + _cu_map(mv[..., 0] >> 3, n) + CHROMA_PAD
+    ci = torch.arange(wc, device=p.device)[None, :] \
+        + _cu_map(mv[..., 1] >> 3, n) + CHROMA_PAD
+    acc = sum(ty[..., k] * sum(tx[..., m] * p[ri - 1 + k, ci - 1 + m]
+                               for m in range(4))
+              for k in range(4))
+    if out14:
+        return acc >> 6
+    return ((acc + 2048) >> 12).clamp(0, 255)
 
 
 # ---------------------------------------------------------------------------

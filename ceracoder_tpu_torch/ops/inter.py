@@ -19,6 +19,13 @@ the middle of a run's launches. Every result of the scan is masked by
 `is_intra`, so running it always gives the same outputs: the port
 always runs it, one launch of K3 (`ops/intra.py:h264_intra16_cols`) per
 P frame on a card, and never synchronizes.
+
+The legacy motion helpers (`motion_search_fullpel`, `half_pel_planes`,
+`mc_luma_qpel`, `halfpel_refine`, `mc_chroma`) are plain torch: the JAX
+package's first per-MB search and half-pel MC, which no encoder path
+calls any more. Their windows are taken where `jax.lax.dynamic_slice`
+takes them: a negative start counts from the end of its axis, and a
+start is clamped to keep the window inside its array.
 """
 
 from __future__ import annotations
@@ -93,6 +100,160 @@ def _tap6_last(a):
     """Unrounded 6-tap along the last axis; out[k] filters a[k..k+5]."""
     return (a[..., 0:-5] - 5 * a[..., 1:-4] + 20 * a[..., 2:-3]
             + 20 * a[..., 3:-2] - 5 * a[..., 4:-1] + a[..., 5:])
+
+
+# ---------------------------------------------------------------------------
+# legacy motion helpers (no encoder path calls them)
+# ---------------------------------------------------------------------------
+
+_PAD = 64  # edge padding for unrestricted MVs (spec clips refs to edge)
+
+
+def _slice_start(start, size: int, dim: int):
+    """jax.lax.dynamic_slice's start index along an axis of length
+    `dim`: a negative start counts from the end, then the start is
+    clamped so that the slice lies inside the axis."""
+    start = start.long()
+    return torch.where(start < 0, start + dim, start).clamp(0, dim - size)
+
+
+def _windows(src, y0, x0, hgt: int, wid: int, sel=None):
+    """The (..., hgt, wid) windows of src's last two dims at the start
+    indices y0, x0 (integer tensors of one shape), each start taken as
+    jax.lax.dynamic_slice takes it (_slice_start); `sel` picks a plane
+    of a stacked (P, H, W) src per window."""
+    h, w = src.shape[-2:]
+    ry = _slice_start(y0, hgt, h)[..., None, None] \
+        + torch.arange(hgt, device=src.device)[:, None]
+    rx = _slice_start(x0, wid, w)[..., None, None] \
+        + torch.arange(wid, device=src.device)[None, :]
+    if sel is None:
+        return src[ry, rx]
+    return src[_slice_start(sel, 1, src.shape[0])[..., None, None], ry, rx]
+
+
+def _mb_origins(mbh: int, mbw: int, mb: int, device):
+    """Each MB's top-left sample: (mbh, 1) rows and (1, mbw) columns."""
+    return (torch.arange(mbh, device=device)[:, None] * mb,
+            torch.arange(mbw, device=device)[None, :] * mb)
+
+
+def motion_search_fullpel(cur, ref, coarse_range: int = 4,
+                          refine_range: int = 3):
+    """Two-stage full-pel 16x16 motion search.
+
+    cur, ref: (H, W) luma. Returns the MVs (mbh, mbw, 2) int32 in
+    full-pel units (dy, dx) and the best SAD (mbh, mbw) int32. Stage 1
+    (coarse_mv) scans (2*coarse_range+1)^2 shifts of 4x average-pooled
+    planes (+-4 coarse = +-16 full-pel); stage 2 refines
+    +-refine_range at full resolution around the coarse winner. Ties
+    take the first candidate in scan order."""
+    h, w = cur.shape
+    mbh, mbw = h // 16, w // 16
+    cur32, ref32 = cur.to(torch.int32), ref.to(torch.int32)
+    cmv = coarse_mv(cur32, ref32, coarse_range)
+    rr = refine_range
+    n = 2 * rr + 1
+    pad = 4 * coarse_range + rr + 16                   # worst-case reach
+    by, bx = _mb_origins(mbh, mbw, 16, cur.device)
+    win = _windows(pad_edge(ref32, pad), by + cmv[..., 0] - rr + pad,
+                   bx + cmv[..., 1] - rr + pad, 16 + 2 * rr, 16 + 2 * rr)
+    cand = win.unfold(2, 16, 1).unfold(3, 16, 1)       # (mbh, mbw, n, n, 16, 16)
+    sads = (_mb_view(cur32)[:, :, None, None] - cand).abs() \
+        .sum((-1, -2), dtype=torch.int32).flatten(2)   # (mbh, mbw, n * n)
+    k = torch.argmin(sads, dim=-1)
+    off = torch.stack([k // n - rr, k % n - rr], dim=-1)
+    sad = sads.gather(-1, k[..., None])[..., 0]
+    return (cmv + off).to(torch.int32), sad
+
+
+def half_pel_planes(ref):
+    """Spec 8.4.2.2.1 6-tap half-sample interpolation.
+
+    ref: (H, W) integer luma. Returns four (H+2*_PAD, W+2*_PAD) int32
+    planes: integer, half-horizontal (b), half-vertical (h), and
+    half-diagonal (j, filtered from unrounded horizontal intermediates).
+    Index [y, x] of each plane is the sample at full-pel (y, x) plus
+    (0,0) / (0,+1/2) / (+1/2,0) / (+1/2,+1/2).
+    """
+    p = pad_edge(ref.to(torch.int32), _PAD + 3)
+    # p[y + _PAD + 3, x + _PAD + 3] == ref[y, x] (edge-clamped); the
+    # half-sample right of x filters ref[x-2..x+3] = tap6 column
+    # x+_PAD+1, so the first output column is dropped
+    bx = _tap6_last(p)                            # (H+2P+6, W+2P+1)
+    b_plane = ((bx[3:-3, 1:] + 16) >> 5).clamp(0, 255)
+    hy = _tap6_last(p.T).T                        # (H+2P+1, W+2P+6)
+    h_plane = ((hy[1:, 3:-3] + 16) >> 5).clamp(0, 255)
+    # j: vertical 6-tap over the unrounded horizontal intermediates
+    jxy = _tap6_last(bx[:, 1:].T).T               # (H+2P+1, W+2P)
+    j_plane = ((jxy[1:, :] + 512) >> 10).clamp(0, 255)
+    return p[3:-3, 3:-3], b_plane, h_plane, j_plane
+
+
+def _half_pel_blocks(stacked, mv_q):
+    """The 16x16 block of each MB at quarter-pel MVs with even
+    components from half_pel_planes' planes stacked (4, H', W')."""
+    mbh, mbw = mv_q.shape[:2]
+    by, bx = _mb_origins(mbh, mbw, 16, mv_q.device)
+    m = mv_q.long()
+    sel = ((m[..., 0] >> 1) & 1) * 2 + ((m[..., 1] >> 1) & 1)
+    return _windows(stacked, by + (m[..., 0] >> 2) + _PAD,
+                    bx + (m[..., 1] >> 2) + _PAD, 16, 16, sel=sel)
+
+
+def mc_luma_qpel(planes, mv):
+    """Luma MC for quarter-pel MVs restricted to half-pel positions
+    (mv quarter-pel components must be even).
+
+    planes: output of half_pel_planes; mv: (mbh, mbw, 2) quarter-pel.
+    Returns (mbh, mbw, 16, 16) int32 predictions.
+    """
+    return _half_pel_blocks(torch.stack(planes), mv)
+
+
+# half-pel refinement candidates in quarter-pel units (order = tie order)
+_HALF_CANDS = ((0, 0), (0, 2), (0, -2), (2, 0), (-2, 0),
+               (2, 2), (2, -2), (-2, 2), (-2, -2))
+
+
+def halfpel_refine(cur_mb, planes, mv_full):
+    """Refine full-pel MVs over the 8 half-pel neighbors by SAD.
+
+    cur_mb: (mbh, mbw, 16, 16) int32; mv_full: (mbh, mbw, 2) full-pel.
+    Returns quarter-pel mv (mbh, mbw, 2) with even components; ties
+    take the first candidate of _HALF_CANDS.
+    """
+    mv_q = mv_full.to(torch.int32) * 4
+    cands = torch.tensor(_HALF_CANDS, dtype=torch.int32,
+                         device=mv_q.device)
+    stacked = torch.stack(planes)
+    sads = torch.stack([
+        (cur_mb - _half_pel_blocks(stacked, mv_q + c)).abs()
+        .sum((-1, -2), dtype=torch.int32) for c in cands])   # (9, mbh, mbw)
+    return mv_q + cands[torch.argmin(sads, dim=0)]
+
+
+def mc_chroma(ref_c, mv_q):
+    """Chroma MC with eighth-pel bilinear (spec 8.4.2.2.2).
+
+    ref_c: (H/2, W/2); mv_q: (mbh, mbw, 2) in QUARTER-pel luma units,
+    which for 4:2:0 are eighth-pel chroma units directly: integer
+    chroma offset = mv >> 3, fraction = mv & 7. Returns (mbh, mbw, 8, 8)
+    int32 predictions.
+    """
+    hc, wc = ref_c.shape
+    mbh, mbw = hc // 8, wc // 8
+    by, bx = _mb_origins(mbh, mbw, 8, ref_c.device)
+    m = mv_q.to(torch.int32)
+    block = _windows(pad_edge(ref_c.to(torch.int32), _PAD),
+                     by + (m[..., 0] >> 3) + _PAD,
+                     bx + (m[..., 1] >> 3) + _PAD, 9, 9)
+    yf = (m[..., 0] & 7)[..., None, None]            # eighth-pel fractions
+    xf = (m[..., 1] & 7)[..., None, None]
+    a, b = block[..., :8, :8], block[..., :8, 1:]
+    c, d = block[..., 1:, :8], block[..., 1:, 1:]
+    return ((8 - xf) * (8 - yf) * a + xf * (8 - yf) * b
+            + (8 - xf) * yf * c + xf * yf * d + 32) >> 6
 
 
 def _select_warp(src, key, cands, offsets, width, axis):

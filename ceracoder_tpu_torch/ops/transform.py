@@ -50,6 +50,7 @@ _CHROMA_QP = np.concatenate([
 # 4x4 zigzag scan (spec 8.5.6), as flat indices into a row-major 4x4 block
 ZIGZAG4x4 = np.array([0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15],
                      dtype=np.int64)
+ZIGZAG4x4_INV = np.argsort(ZIGZAG4x4)       # zigzag place of each sample
 
 
 def chroma_qp(qp_luma: int, offset: int = 0) -> int:
@@ -216,3 +217,9 @@ def zigzag_scan(blocks: torch.Tensor) -> torch.Tensor:
     """(..., 4, 4) -> (..., 16) in zigzag order."""
     flat = blocks.reshape(*blocks.shape[:-2], 16)
     return flat[..., _table("ZIGZAG4x4", blocks.device)]
+
+
+def zigzag_unscan(scanned: torch.Tensor) -> torch.Tensor:
+    """(..., 16) zigzag order -> (..., 4, 4)."""
+    flat = scanned[..., _table("ZIGZAG4x4_INV", scanned.device)]
+    return flat.reshape(*scanned.shape[:-1], 4, 4)

@@ -265,7 +265,9 @@ class ShardedH265Encoder:
         self.pw = -(-width // CTB) * CTB
         self.ph = -(-height // CTB) * CTB
         self.bounds = band_bounds(self.ph // CTB, n_bands)
-        self.params = HevcParams(width=width, height=height, qp=qp)
+        self.params = HevcParams(width=width, height=height, qp=qp,
+                                 pcm_enabled=False, deblock=True,
+                                 tile_rows=True)
         self._ref = None              # per band: its reference planes
         self._poc = 0
         self.frames_launched = 0

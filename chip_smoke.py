@@ -158,7 +158,30 @@ Phases (any failure exits non-zero; nothing is caught and skipped):
    frame (K4 once); the numpy H265RowEncoder(native_entropy=False),
    i.e. compute_intra_rows / compute_p_rows and the Python CABAC
    entropy_rows, codes the same frames copied to the host to the same
-   parameter sets and NAL bytes; prints those stages' seconds.
+   parameter sets and NAL bytes; prints those stages' seconds;
+18. one slice per CTB row, the deblock's share and the legacy motion
+   helpers: (a) H265DeviceEncoder(1920, 1088, qp=30, gop=60) with tile
+   rows and with tile_rows turned off in its params (slice mode; the
+   encoder takes no such option) on the same 10 frames of the device
+   test pattern through encode_run_async: every reconstruction equal,
+   68 slice NAL units a slice-mode frame, K4 once per IDR; the Python
+   entropy_rows and entropy_rows_native in slice mode, on the numpy
+   spec's arrays that phase 17 (b) kept for the first IDR and P frame,
+   equal the card's slice-mode IDR and P byte for byte; prints the
+   bytes per frame in both modes. (b) phase 6 with ops/h265.py's
+   deblock_frame_dev patched to return its input (the work of JAX's
+   deblock=False; 3 runs of 10 frames, the same checks): frames/s,
+   launches and device ms of one more P frame beside phase 6's of this
+   call and the deblock's share of the launches and device ms; then
+   host ms per P frame with the deblock on and patched out in turns
+   (10 pairs of runs of 10 P frames, the order alternating). (c) the
+   legacy motion helpers (ops/h265.py:
+   motion_search_dev, _luma_qpel_planes, _refine_subpel, _mc_luma_qpel,
+   _uni_from_14, _mc_chroma_qpel; ops/inter.py: motion_search_fullpel,
+   half_pel_planes, halfpel_refine, mc_luma_qpel, mc_chroma; no encoder
+   path calls them) GPU == CPU on frames 0 and 1 of the device test
+   pattern at 320x192, exact, and each at 1920x1088, the median of 7
+   calls timed alone.
 
 The native libraries (native/src: the HEVC entropy stage, the H.264
 CABAC row coder, the balancer core, the TS muxer and packer, the SRT
@@ -189,6 +212,7 @@ import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -1202,20 +1226,22 @@ def phase_gpu_equals_cpu(tag: str, main: dict) -> None:
 NAL_IDR_W_RADL, NAL_TRAIL_R, NAL_TRAIL_N = 19, 1, 0
 
 
-def check_hevc_frame(data: bytes, idr: bool, kind: str | None = None) -> None:
-    """One frame: a single NAL unit (one slice, a tile per CTB row)
-    behind a 4-byte start code, of the frame's NAL type (by `kind`, "I",
-    "P" or "B", where given)."""
+def check_hevc_frame(data: bytes, idr: bool, kind: str | None = None,
+                     nals: int = 1) -> None:
+    """One frame: `nals` NAL units (by default one: one slice, a tile per
+    CTB row; in slice mode one per CTB row) behind a 4-byte start code,
+    of the frame's NAL type (by `kind`, "I", "P" or "B", where given)."""
     check(data.startswith(b"\x00\x00\x00\x01"), "frame lacks a start code")
-    nals = data.count(b"\x00\x00\x01")
-    check(nals == 1, f"{nals} NAL units, want 1 (tile rows, one slice)")
+    got_nals = data.count(b"\x00\x00\x01")
+    check(got_nals == nals, f"{got_nals} NAL units, want {nals}")
     want = ({"I": NAL_IDR_W_RADL, "P": NAL_TRAIL_R, "B": NAL_TRAIL_N}[kind]
             if kind else NAL_IDR_W_RADL if idr else NAL_TRAIL_R)
     got = (data[4] >> 1) & 0x3F
     check(got == want, f"NAL type {got}, want {want}")
 
 
-def phase_hevc_main_path(tag: str) -> dict:
+def phase_hevc_main_path(tag: str, label: str = "HEVC main path") -> dict:
+    """Phase 6 (and phase 18 (b) with the deblock patched out)."""
     from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
     from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
 
@@ -1260,11 +1286,11 @@ def phase_hevc_main_path(tag: str) -> dict:
         **frame_launches, "peak_mem_bytes": peak,
         "first_two": b"".join(f.data for f in frames[:2]),
     }
-    print(f"{tag} HEVC main path 1080p: {nf} frames in {secs:.3f} s "
+    print(f"{tag} {label} 1080p: {nf} frames in {secs:.3f} s "
           f"= {out['fps']:.3f} frames/s (runs 2-3: "
           f"{out['fps_runs_2_3']:.3f} frames/s; per run "
           f"{', '.join(f'{s:.3f}' for s in run_secs)} s)")
-    print(f"{tag} HEVC main path bytes/frame: IDR {out['bytes_idr']}, P "
+    print(f"{tag} {label} bytes/frame: IDR {out['bytes_idr']}, P "
           f"mean {out['bytes_p_mean']:.1f}; fallback frames "
           f"{out['fallback_frames']}; hand-kernel launches {launches}; "
           f"peak device memory {peak} B; {describe_frame_launches(out)}")
@@ -2989,11 +3015,14 @@ def reference_h264(tag: str, w: int = 1920, h: int = 1088) -> dict:
     return out
 
 
-def reference_hevc(tag: str, w: int = 1920, h: int = 1088) -> dict:
+def reference_hevc(tag: str, w: int = 1920,
+                   h: int = 1088) -> tuple[dict, list]:
     """(b) Phase 6's encoder codes the first IDR and P frame of the
     device test pattern on the card; the numpy row encoder with the
     Python CABAC codes the same frames, copied to the host, to the same
-    NAL bytes."""
+    NAL bytes. Returns the readings and, per frame, the (arrays, qp,
+    keywords) that the spec handed its entropy stage (phase 18 (a)
+    codes them again in slice mode)."""
     import ceracoder_tpu_torch.codec.h265.rowslice as rows
     from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
     from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
@@ -3012,8 +3041,14 @@ def reference_hevc(tag: str, w: int = 1920, h: int = 1088) -> dict:
     timed = Timed()
     names = ("compute_intra_rows", "compute_p_rows", "entropy_rows")
     real = {k: getattr(rows, k) for k in names}
+    entropy_inputs = []
+
+    def keep_inputs(p, arrays, qp, **kw):
+        entropy_inputs.append((dict(arrays), qp, kw))
+        return real["entropy_rows"](p, arrays, qp, **kw)
     for k in names:
-        setattr(rows, k, timed.wrap(k, real[k]))
+        setattr(rows, k, timed.wrap(k, keep_inputs if k == "entropy_rows"
+                                    else real[k]))
     timed.on = True
     t = time.perf_counter()
     try:
@@ -3040,16 +3075,310 @@ def reference_hevc(tag: str, w: int = 1920, h: int = 1088) -> dict:
           f"{timed.secs['compute_p_rows']:.3f} s, entropy_rows "
           f"{timed.secs['entropy_rows']:.3f} s (both frames), the spec "
           f"{spec_s:.3f} s in all; kernel launches {launches}")
+    return out, entropy_inputs
+
+
+def phase_reference_codec(tag: str) -> tuple[dict, list]:
+    """Phase 17: (a) the H.264 CABAC stream parsed, (b) the HEVC numpy
+    spec against the card's bytes. Returns the readings and (b)'s
+    entropy-stage inputs."""
+    t0 = time.perf_counter()
+    out = {"h264": reference_h264(tag)}
+    out["hevc"], entropy_inputs = reference_hevc(tag)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"{tag} phase 17 (the host reference codec) took "
+          f"{out['seconds']:.1f} s")
+    return out, entropy_inputs
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: one slice per CTB row, deblock off, the legacy motion helpers
+# ---------------------------------------------------------------------------
+
+def hevc_slice_mode(tag: str, entropy_inputs: list) -> dict:
+    """(a) Phase 6's encoder with tile rows and in slice mode (one slice
+    segment per CTB row) on the same 10 frames: the same
+    reconstructions, 68 slice NAL units a slice-mode frame, K4 once per
+    IDR; the first IDR and P frame of the slice-mode run equal, byte for
+    byte, the Python and the native entropy stage in slice mode on the
+    numpy spec's arrays of phase 17 (b). The device encoder takes no
+    slice-mode option (the spec layer, rowslice.py, has the mode); its
+    entropy stage follows its `params`, so tile_rows is turned off
+    there."""
+    from dataclasses import replace
+
+    import ceracoder_tpu_torch.codec.h265.rowslice as rows
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+    from ceracoder_tpu_torch.codec.h265.syntax import nal_unit
+
+    w, h, n = 1920, 1088, 10
+    src = DeviceTestPatternSource(w, h, texture=6)
+    runs = {}
+    for mode in ("tiles", "slices"):
+        enc = H265DeviceEncoder(w, h, qp=30, gop=60)
+        if mode == "slices":
+            enc.params = replace(enc.params, tile_rows=False)
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        frames = [p.result() for p in enc.encode_run_async(
+            source=src, indices=range(n))]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = read_launches()
+        check_hevc_launches(launches, 1)
+        check([f.keyframe for f in frames] == [True] + [False] * (n - 1),
+              f"{mode}: GOP structure (1 IDR + P frames)")
+        for f in frames:
+            check_hevc_frame(f.data, f.keyframe,
+                             nals=1 if mode == "tiles" else h // 16)
+        runs[mode] = {"enc": enc, "frames": frames, "seconds": secs,
+                      "launches": launches}
+    tiles, slices = runs["tiles"]["frames"], runs["slices"]["frames"]
+    for i, (a, b) in enumerate(zip(tiles, slices)):
+        check(all(torch.equal(x, y) for x, y in zip(a._recon_dev,
+                                                    b._recon_dev)),
+              f"frame {i}: the slice-mode reconstruction differs from the "
+              "tile-rows one")
+    check(len(entropy_inputs) == 2, "phase 17 (b) kept no entropy inputs")
+    params = runs["slices"]["enc"].params
+    spec_s = {}
+    for coder in (rows.entropy_rows, rows.entropy_rows_native):
+        t = time.perf_counter()
+        for i, (arrays, qp, kw) in enumerate(entropy_inputs):
+            rbsps = coder(params, arrays, qp, **kw)
+            ntype = NAL_IDR_W_RADL if kw["idr"] else NAL_TRAIL_R
+            data = b"".join(nal_unit(ntype, r, long_start_code=(j == 0))
+                            for j, r in enumerate(rbsps))
+            check(data == slices[i].data,
+                  f"frame {i}: {coder.__name__} in slice mode on the "
+                  f"numpy spec's arrays ({len(data)} B) differs from the "
+                  f"card's ({len(slices[i].data)} B)")
+        spec_s[coder.__name__] = time.perf_counter() - t
+
+    def sizes(frames):
+        b = [len(f.data) for f in frames]
+        return {"bytes_idr": b[0], "bytes_p_mean": sum(b[1:]) / (n - 1),
+                "bytes": b}
+    out = {mode: {"seconds": r["seconds"], "launches": r["launches"],
+                  **sizes(r["frames"])} for mode, r in runs.items()}
+    out["entropy_seconds_idr_p"] = spec_s
+    print(f"{tag} phase 18 (a) HEVC {w}x{h} one slice per CTB row: {n} "
+          f"frames of {h // 16} slice NAL units each, reconstructions equal "
+          f"to tile rows'; bytes/frame tile rows IDR "
+          f"{out['tiles']['bytes_idr']}, P mean "
+          f"{out['tiles']['bytes_p_mean']:.1f}; slices IDR "
+          f"{out['slices']['bytes_idr']}, P mean "
+          f"{out['slices']['bytes_p_mean']:.1f}; entropy_rows and "
+          f"entropy_rows_native in slice mode on phase 17's spec arrays "
+          f"equal the card's IDR and P ({spec_s['entropy_rows']:.3f} s, "
+          f"{spec_s['entropy_rows_native']:.3f} s); run seconds tile rows "
+          f"{out['tiles']['seconds']:.3f}, slices "
+          f"{out['slices']['seconds']:.3f}; kernel launches "
+          f"{out['slices']['launches']}")
     return out
 
 
-def phase_reference_codec(tag: str) -> dict:
-    """Phase 17: (a) the H.264 CABAC stream parsed, (b) the HEVC numpy
-    spec against the card's bytes."""
+@contextmanager
+def deblock_patched_out():
+    """ops/h265.py's deblock_frame_dev returns its input planes: the work
+    of the JAX encoder's deblock=False (SAO, where on, reads the
+    unfiltered reconstruction). For measurement only: the parameter
+    sets still announce the deblock, so the stream does not decode to
+    the reconstruction."""
+    import ceracoder_tpu_torch.ops.h265 as ops
+
+    real = ops.deblock_frame_dev
+    ops.deblock_frame_dev = lambda y, u, v, *args, **kw: (y, u, v)
+    try:
+        yield
+    finally:
+        ops.deblock_frame_dev = real
+
+
+def deblock_in_turns(pairs: int = 10, run_len: int = 10) -> dict:
+    """Host ms per P frame of phase 6's encoder with the deblock on and
+    patched out (deblock_patched_out), in turns on the same card: after
+    a warm-up run each (the IDR and first-call costs), `pairs` pairs of
+    runs of `run_len` P frames, the order within a pair alternating
+    (on, off), (off, on), ... Each run is timed from its launch to its
+    last result and synchronize."""
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+
+    w, h = 1920, 1088
+    src = DeviceTestPatternSource(w, h, texture=6)
+    gop = 120
+    encs = {on: H265DeviceEncoder(w, h, qp=30, gop=gop)
+            for on in (True, False)}
+    check(run_len * (pairs + 1) <= gop, "the runs must stay in one GOP")
+    start = {True: 0, False: 0}
+
+    def run(on: bool) -> float:
+        idx = range(start[on], start[on] + run_len)
+        start[on] += run_len
+        with nullcontext() if on else deblock_patched_out():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for p in encs[on].encode_run_async(source=src, indices=idx):
+                p.result()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t) * 1e3 / run_len
+
+    run(True)
+    run(False)
+    ms = {True: [], False: []}
+    for i in range(pairs):
+        for on in ((True, False) if i % 2 == 0 else (False, True)):
+            ms[on].append(run(on))
+    med = {on: statistics.median(v) for on, v in ms.items()}
+    return {"host_ms_per_p_frame_on": ms[True],
+            "host_ms_per_p_frame_off": ms[False],
+            "median_on": med[True], "median_off": med[False],
+            "share": 1 - med[False] / med[True],
+            "off_faster_pairs": sum(a > b for a, b in zip(ms[True],
+                                                          ms[False]))}
+
+
+def hevc_no_deblock(tag: str, hevc: dict) -> dict:
+    """(b) Phase 6 with the deblock patched out (deblock_patched_out):
+    its 3 runs of 10 frames, with phase 6's checks, beside phase 6's own
+    figures of this call, and the deblock's share of the launches and
+    device ms of one more P frame; then host ms per P frame with the
+    deblock on and off in turns (deblock_in_turns), the one host share
+    this phase reports."""
+    with deblock_patched_out():
+        off = phase_hevc_main_path(tag, label="HEVC deblock patched out")
+    off.pop("first_two")
+    keys = ("fps", "fps_runs_2_3", "launches_per_p_frame",
+            "device_ms_per_p_frame", "bytes_idr", "bytes_p_mean")
+    rows = {name: {k: r[k] for k in keys}
+            for name, r in (("deblock_on_phase_6", hevc),
+                            ("deblock_off", off))}
+    on_, off_ = rows["deblock_on_phase_6"], rows["deblock_off"]
+    share = {k: 1 - off_[k] / on_[k] for k in (
+        "launches_per_p_frame", "device_ms_per_p_frame")}
+    print(f"{tag} phase 18 (b) HEVC 1920x1088 deblock on (phase 6) / "
+          f"patched out: frames/s {on_['fps']:.3f} / {off_['fps']:.3f} "
+          f"(runs 2-3 {on_['fps_runs_2_3']:.3f} / "
+          f"{off_['fps_runs_2_3']:.3f}); one more P frame "
+          f"{on_['launches_per_p_frame']} / {off_['launches_per_p_frame']} "
+          f"CUDA launches, {on_['device_ms_per_p_frame']:.3f} / "
+          f"{off_['device_ms_per_p_frame']:.3f} device ms; the deblock's "
+          f"share: launches {share['launches_per_p_frame']:.3f}, device "
+          f"{share['device_ms_per_p_frame']:.3f}")
+    check(share["launches_per_p_frame"] > 0,
+          "the deblock patched out saved no launch")
+    turns = deblock_in_turns()
+    n = len(turns["host_ms_per_p_frame_on"])
+    print(f"{tag} phase 18 (b) HEVC 1920x1088 deblock on / patched out in "
+          f"turns, host ms per P frame over runs of 10: on "
+          f"{', '.join(f'{x:.3f}' for x in turns['host_ms_per_p_frame_on'])}"
+          f"; off "
+          f"{', '.join(f'{x:.3f}' for x in turns['host_ms_per_p_frame_off'])}"
+          f"; medians {turns['median_on']:.3f} / {turns['median_off']:.3f}, "
+          f"the deblock's host share {turns['share']:.3f}; off faster in "
+          f"{turns['off_faster_pairs']} of {n} pairs")
+    return {**rows, "share": share, "in_turns": turns,
+            "launches": off["launches"], "deblock_off_main_path": off}
+
+
+def legacy_motion_outputs(cur, ref, ref_c) -> dict:
+    """Every legacy motion helper on one frame pair (luma cur and ref,
+    the reference's chroma plane), as the profiling tools chain them:
+    name -> (callable, its output)."""
+    import ceracoder_tpu_torch.ops.h265 as H
+    import ceracoder_tpu_torch.ops.inter as I
+
+    h, w = cur.shape
+    pad, cpad = H.LUMA_SRC_PAD, H.CHROMA_PAD
+    steps = {}
+
+    def step(name, fn):
+        steps[name] = (fn, fn())
+        return steps[name][1]
+
+    mv = step("h265 motion_search_dev", lambda: H.motion_search_dev(cur, ref))
+    ref_pad = H._pad_edge(ref, pad, pad, pad, pad)
+    planes = step("h265 _luma_qpel_planes",
+                  lambda: H._luma_qpel_planes(ref_pad))
+    planes14 = step("h265 _luma_qpel_planes out14",
+                    lambda: H._luma_qpel_planes(ref_pad, True))
+    mvq = step("h265 _refine_subpel",
+               lambda: H._refine_subpel(cur, planes, mv, h, w))
+    step("h265 _mc_luma_qpel", lambda: H._mc_luma_qpel(planes, mvq, h, w))
+    step("h265 _uni_from_14 of _mc_luma_qpel out14", lambda: H._uni_from_14(
+        H._mc_luma_qpel(planes14, mvq, h, w)))
+    ref_c_pad = H._pad_edge(ref_c, cpad, cpad, cpad, cpad)
+    step("h265 _mc_chroma_qpel",
+         lambda: H._mc_chroma_qpel(ref_c_pad, mvq, h // 2, w // 2))
+    step("h265 _mc_chroma_qpel out14",
+         lambda: H._mc_chroma_qpel(ref_c_pad, mvq, h // 2, w // 2, True))
+    full, _ = step("h264 motion_search_fullpel",
+                   lambda: I.motion_search_fullpel(cur, ref))
+    hp = step("h264 half_pel_planes", lambda: I.half_pel_planes(ref))
+    cur_mb = I._mb_view(cur.to(torch.int32))
+    mvh = step("h264 halfpel_refine",
+               lambda: I.halfpel_refine(cur_mb, hp, full))
+    step("h264 mc_luma_qpel", lambda: I.mc_luma_qpel(hp, mvh))
+    step("h264 mc_chroma", lambda: I.mc_chroma(ref_c, mvh))
+    return steps
+
+
+def _flat_tensors(x) -> list:
+    return ([x] if isinstance(x, torch.Tensor)
+            else [t for y in x for t in _flat_tensors(y)])
+
+
+def legacy_motion(tag: str) -> dict:
+    """(c) The legacy motion helpers (HEVC ops/h265.py, H.264
+    ops/inter.py; no encoder path calls them): GPU == CPU on frames 0
+    and 1 of the device test pattern at 320x192, exact, then each at
+    1920x1088: the median of 7 calls, each timed alone by CUDA events,
+    after 2 warm-up calls."""
+    from ceracoder_tpu_torch.app.source import DeviceTestPatternSource
+
+    def frames(w, h, device):
+        src = DeviceTestPatternSource(w, h, texture=6, device=device)
+        (cur, _, _), (ref, ref_u, _) = src.frame(1), src.frame(0)
+        return cur, ref, ref_u
+
+    t = time.perf_counter()
+    gpu = legacy_motion_outputs(*frames(320, 192, "cuda"))
+    cpu = legacy_motion_outputs(*frames(320, 192, "cpu"))
+    for name, (_, out) in gpu.items():
+        a, b = _flat_tensors(out), _flat_tensors(cpu[name][1])
+        check(len(a) == len(b) and all(
+            x.shape == y.shape and torch.equal(x.cpu(), y)
+            for x, y in zip(a, b)), f"legacy {name}: GPU and CPU differ")
+    mv = cpu["h265 motion_search_dev"][1]
+    check(bool(mv.any()), "legacy search found no motion on the pattern")
+    print(f"{tag} phase 18 (c) legacy motion helpers GPU == CPU at "
+          f"320x192: {len(gpu)} outputs identical "
+          f"({time.perf_counter() - t:.2f} s)")
+    steps = legacy_motion_outputs(*frames(1920, 1088, "cuda"))
+    calls = {name: [time_cuda(fn, iters=1, warmup=2 if i == 0 else 0)
+                    for i in range(7)]
+             for name, (fn, _) in steps.items()}
+    ms = {name: statistics.median(v) for name, v in calls.items()}
+    print(f"{tag} phase 18 (c) legacy motion helpers at 1920x1088, ms per "
+          f"call (median of 7 calls, CUDA events; min-max): " + ", ".join(
+              f"{k} {ms[k]:.3f} ({min(v):.3f}-{max(v):.3f})"
+              for k, v in calls.items()))
+    return {"ms_1080p": ms, "ms_1080p_calls": calls}
+
+
+def phase_slices_deblock_legacy(tag: str, hevc: dict,
+                                entropy_inputs: list) -> dict:
+    """Phase 18: (a) one slice per CTB row, (b) the deblock's share of a
+    P frame, (c) the legacy motion helpers."""
     t0 = time.perf_counter()
-    out = {"h264": reference_h264(tag), "hevc": reference_hevc(tag)}
+    out = {"slices": hevc_slice_mode(tag, entropy_inputs),
+           "no_deblock": hevc_no_deblock(tag, hevc),
+           "legacy_motion": legacy_motion(tag)}
     out["seconds"] = time.perf_counter() - t0
-    print(f"{tag} phase 17 (the host reference codec) took "
+    print(f"{tag} phase 18 (slices, deblock share, legacy motion) took "
           f"{out['seconds']:.1f} s")
     return out
 
@@ -3250,8 +3579,10 @@ def main() -> int:
     print(json.dumps({"parallel_path": par}))
     sup = phase_supervisor(tag)
     print(json.dumps({"supervisor_path": sup}))
-    ref = phase_reference_codec(tag)
+    ref, entropy_inputs = phase_reference_codec(tag)
     print(json.dumps({"reference_codec": ref}))
+    p18 = phase_slices_deblock_legacy(tag, hevc, entropy_inputs)
+    print(json.dumps({"slices_deblock_legacy": p18}))
 
     def launches(name):
         return {"launches_cavlc_path": main_out["launches"][name],
@@ -3268,7 +3599,11 @@ def main() -> int:
                 "launches_h264_sharded_path":
                     par["h264_mesh"]["launches"][name],
                 "launches_per_stream_control":
-                    sup["per_stream_control"]["launches"][name]}
+                    sup["per_stream_control"]["launches"][name],
+                "launches_hevc_slices_path":
+                    p18["slices"]["slices"]["launches"][name],
+                "launches_hevc_no_deblock_path":
+                    p18["no_deblock"]["launches"][name]}
     p = k1["P"]
     kernels = [{
         "name": "merge_windows", "route": KERNELS["merge_windows"][2],

@@ -297,7 +297,8 @@ def test_entropy_rows_native_matches_jax(slice_type, nch, tu_split):
     kw = dict(qp=31, idr=False, poc=5,
               ref_poc_delta=2 if slice_type == "P" else 1,
               slice_type=slice_type if slice_type == "B" else None)
-    p = HevcParams(W, 16 * nch, qp=QP, max_reorder=1, max_dpb_minus1=2,
+    p = HevcParams(W, 16 * nch, qp=QP, pcm_enabled=False, deblock=True,
+                   max_reorder=1, max_dpb_minus1=2, tile_rows=True,
                    tu_split_inter=tu_split)
     jp = JParams(W, 16 * nch, qp=QP, pcm_enabled=False, deblock=True,
                  max_reorder=1, max_dpb_minus1=2, tile_rows=True,

@@ -309,7 +309,6 @@ def test_segment_caps_bind_in_jax_only(grid, density):
     from its dense fallback, so both streams are the same."""
     from ceracoder_tpu.codec.h265.rowslice import entropy_rows_native as jent
     from ceracoder_tpu_torch.codec.h265.rowslice import entropy_rows_native
-    from ceracoder_tpu_torch.codec.h265.syntax import HevcParams
 
     rng = np.random.default_rng(11)
     nch, ncw = grid
@@ -327,7 +326,7 @@ def test_segment_caps_bind_in_jax_only(grid, density):
     arrays = {"is_intra": np.zeros((nch, ncw), bool),
               "mode": np.zeros((nch, ncw), np.int32),
               "mv": rng.integers(-8, 9, (nch, ncw, 2)).astype(np.int32)}
-    mine = entropy_rows_native(HevcParams(ncw * 16, nch * 16, qp=30),
+    mine = entropy_rows_native(_params(ncw * 16, nch * 16),
                                {**arrays, **dense}, 30, idr=False, poc=1)
     ref = jent(_jparams(ncw * 16, nch * 16), {**arrays, **dict(zip(
         ("luma_lv", "cb_lv", "cr_lv"), levels))}, 30, idr=False, poc=1)
@@ -343,6 +342,12 @@ def _jparams(w, h, qp=30):
                    tile_rows=True)
 
 
+def _params(w, h, qp=30):
+    """The port's H265DeviceEncoder's own parameters."""
+    from ceracoder_tpu_torch.codec.h265.device import H265DeviceEncoder
+    return H265DeviceEncoder(w, h, qp=qp, device="cpu").params
+
+
 @pytest.mark.parametrize("w,h", [(96, 64), (90, 60), (96, 16),
                                  (1920, 1088)])
 def test_parameter_sets_match_jax(w, h):
@@ -352,7 +357,7 @@ def test_parameter_sets_match_jax(w, h):
     from ceracoder_tpu.codec.h265 import syntax as js
     from ceracoder_tpu_torch.codec.h265 import syntax as ts
 
-    p, jp = ts.HevcParams(w, h, qp=30), _jparams(w, h)
+    p, jp = _params(w, h), _jparams(w, h)
     for name in ("write_vps", "write_sps", "write_pps"):
         assert getattr(ts, name)(p) == getattr(js, name)(jp), name
 
@@ -364,7 +369,6 @@ def test_entropy_rows_native_matches_jax(nch, idr):
     plain slice for a one-row picture) codes the JAX call's bytes."""
     from ceracoder_tpu.codec.h265.rowslice import entropy_rows_native as jent
     from ceracoder_tpu_torch.codec.h265.rowslice import entropy_rows_native
-    from ceracoder_tpu_torch.codec.h265.syntax import HevcParams
 
     rng = np.random.default_rng(nch * 2 + idr)
     ncw = 6
@@ -376,7 +380,7 @@ def test_entropy_rows_native_matches_jax(nch, idr):
         "mv": (np.zeros((nch, ncw, 2), np.int32) if idr
                else rng.integers(-30, 31, (nch, ncw, 2)).astype(np.int32)),
         **dict(zip(("luma_lv", "cb_lv", "cr_lv"), levels))}
-    mine = entropy_rows_native(HevcParams(ncw * 16, nch * 16, qp=30),
+    mine = entropy_rows_native(_params(ncw * 16, nch * 16),
                                arrays, 30, idr=idr, poc=0 if idr else 3)
     ref = jent(_jparams(ncw * 16, nch * 16), arrays, 30, idr=idr,
                poc=0 if idr else 3)

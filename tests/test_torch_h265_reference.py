@@ -454,8 +454,8 @@ def _entropy_arrays(rng, kind, nch, ncw, sao, split):
                                            (1, True, True)])
 def test_entropy_rows(kind, nch, sao, split):
     """The Python entropy stage equals JAX's and the port's native stage
-    (tile rows, a one-row picture's plain slice, SAO parameters, TU
-    split flags)."""
+    (tile rows, a one-row picture's plain slice, one slice segment per
+    row, SAO parameters, TU split flags)."""
     rng = np.random.default_rng("IPB".index(kind) * 8 + nch * 4 + sao * 2
                                 + split)
     ncw = 4
@@ -471,11 +471,12 @@ def test_entropy_rows(kind, nch, sao, split):
     assert mine == j_rows.entropy_rows(jp, arrays, 31, **kw)
     assert mine == t_rows.entropy_rows_native(p, arrays, 31, **kw)
     assert len(mine) == 1
-    if nch > 1:     # the port codes several rows only as tile rows
-        p.tile_rows = False
-        for coder in (t_rows.entropy_rows, t_rows.entropy_rows_native):
-            with pytest.raises(ValueError, match="tile rows"):
-                coder(p, arrays, 31, **kw)
+    if nch > 1:     # one slice segment per CTB row
+        p.tile_rows = jp.tile_rows = False
+        rows = t_rows.entropy_rows(p, arrays, 31, **kw)
+        assert rows == j_rows.entropy_rows(jp, arrays, 31, **kw)
+        assert rows == t_rows.entropy_rows_native(p, arrays, 31, **kw)
+        assert len(rows) == nch
 
 
 _ROW_CASES = {

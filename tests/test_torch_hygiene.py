@@ -76,6 +76,39 @@ def test_no_reference_coder_is_wired_as_a_fallback():
     assert REFERENCE_CODERS <= ref
 
 
+# the legacy motion helpers and the CAVLC block decoder: ported for the
+# tools and the tests, called by no module of the port
+LEGACY = {"motion_search_dev": "ops/h265.py", "_refine_subpel": "ops/h265.py",
+          "motion_search_fullpel": "ops/inter.py",
+          "halfpel_refine": "ops/inter.py",
+          "decode_block": "codec/h264/cavlc.py"}
+
+
+def _calls_and_imports(path):
+    """The names a module calls (plain or as attributes) or imports."""
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Call):
+            f = node.func
+            if isinstance(f, ast.Name):
+                yield f.id
+            elif isinstance(f, ast.Attribute):
+                yield f.attr
+        elif isinstance(node, (ast.Import, ast.ImportFrom)):
+            yield from (a.name.split(".")[-1] for a in node.names)
+
+
+def test_legacy_helpers_are_off_every_path():
+    """No module of the port calls or imports the legacy full searches
+    and refines or the CAVLC block decoder; each is defined where its
+    JAX twin is."""
+    pkg = ROOT / "ceracoder_tpu_torch"
+    bad = [(f.relative_to(ROOT).as_posix(), n) for f in pkg.rglob("*.py")
+           for n in _calls_and_imports(f) if n in LEGACY]
+    assert bad == []
+    for name, module in LEGACY.items():
+        assert name in set(_names(pkg / module)), name
+
+
 def test_every_kernel_source_is_built_through_cuda_build():
     """Each csrc/*.cu is one kernel: a wrapper loads it through
     utils/cuda_build.py's load_library (nvcc, keyed build into build/,
@@ -136,6 +169,9 @@ def test_hevc_entry_points_default_to_cuda(monkeypatch):
                      ({"bframes": 1, "tu_split": True}, (True, 1, 2))):
         p = H265DeviceEncoder(64, 48, device="cpu", **kw).params
         assert (p.tu_split_inter, p.max_reorder, p.max_dpb_minus1) == want
+    # the operating point is stated, not taken from HevcParams' defaults
+    p = H265DeviceEncoder(64, 48, device="cpu").params
+    assert (p.deblock, p.tile_rows, p.pcm_enabled) == (True, True, False)
     # the JAX encoder's options that the port does not take (its modes
     # without native entropy, deblocking or tile rows) are not accepted,
     # so no caller can believe it got them

@@ -89,3 +89,13 @@ def test_block_helpers_match():
     _eq(bj, bp)
     _eq(J.from_blocks4(bj), P.from_blocks4(bp))
     _eq(J.zigzag_scan(bj), P.zigzag_scan(bp))
+
+
+def test_zigzag_unscan(blocks):
+    """zigzag_unscan against JAX's, and as the inverse of zigzag_scan,
+    on 4x4 blocks and on leading dimensions."""
+    scanned = blocks.reshape(10, 4, 16)
+    _eq(J.zigzag_unscan(jnp.asarray(scanned)),
+        P.zigzag_unscan(torch.as_tensor(scanned)))
+    x = torch.as_tensor(blocks)
+    assert torch.equal(P.zigzag_unscan(P.zigzag_scan(x)), x)
