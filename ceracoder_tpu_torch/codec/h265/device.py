@@ -13,6 +13,12 @@ capacity is coded from its dense levels, kept on the device until the
 run's results are read: the same arrays, so the same bytes as the JAX
 encoder's exact fallback.
 
+On a card, a P frame of a run whose frame hook is the default replays
+a CUDA graph of its device work (encode_frame_row), captured once per
+QP: the eager path launches about 1,365 small kernels a 1080p P frame,
+and the host's launches, not the card, then set the pace. IDR frames,
+B frames and runs with a caller's frame hook run eagerly.
+
 With `sao=True` each frame's deblocked reconstruction also goes
 through SAO on the device (ops/h265.py: sao_estimate_dev,
 sao_apply_dev); the filtered planes are the next reference, and the
@@ -61,6 +67,7 @@ from ceracoder_tpu_torch.codec.h265.syntax import (
 )
 from ceracoder_tpu_torch.ops.h265 import (
     _pad_edge,
+    encode_frame_row,
     encode_run_pairs,
     encode_run_rows,
     level_capacity,
@@ -85,7 +92,8 @@ class H265DeviceEncoder:
     ``device="cpu"``). `fallback_frames` counts frames whose sparse
     levels overflowed and were coded from their dense levels;
     `frames_launched` frames whose device work has started (the app's
-    stall watchdog reads it).
+    stall watchdog reads it); `graph_frames` P frames replayed from a
+    CUDA graph and `graph_captures` the graphs captured (_graph_row).
     """
 
     def __init__(self, width: int, height: int, qp: int = 32,
@@ -115,6 +123,13 @@ class H265DeviceEncoder:
         self._poc = 0
         self.fallback_frames = 0
         self.frames_launched = 0
+        self.graph_frames = 0
+        self.graph_captures = 0
+        self._p_warm = False          # an eager P frame has run
+        self._graphs = {}             # (qp, cap) -> (graph, its outputs)
+        self._graph_in = None         # the graphs' (y, u, v, *ref) inputs
+        self._graph_pool = None
+        self._side_stream = None      # captures and _to_host's copies
 
     def headers(self) -> bytes:
         p = self.params
@@ -230,16 +245,87 @@ class H265DeviceEncoder:
         n_ctb = (self.ph // CTB) * (self.pw // CTB)
         caps, chunks = zip(*(level_capacity(n_ctb, bool(i), cap)
                              for i in idr_flags))
+        graphs = self.device.type == "cuda" and frame_hook is run_frame
         outs = encode_run_rows(planes, idr_flags, qps,
                                [chroma_qp(q) for q in qps],
                                self._ref_or_blank(), caps, chunks,
                                sao=self.sao, tu_split=self.tu_split,
-                               frame=frame_hook)
+                               frame=frame_hook,
+                               row=self._graph_row if graphs
+                               else encode_frame_row)
         self._ref = outs[-1]["recon"]
         rows = self._rows_to_host(outs)
         return [self._make_run_pending(
             outs[f], rows, f, "I" if idr_flags[f] else "P", qps[f], pocs[f],
             caps[f], chunks[f]) for f in range(len(outs))]
+
+    def _graph_row(self, y, u, v, ref, idr: bool, qp: int, qp_c: int,
+                   cap: int, chunk: int, stage, sao: bool = False,
+                   tu_split: bool = False, fut=None) -> dict:
+        """encode_frame_row on a card (_launch): a P frame replays the
+        CUDA graph captured for its QP and capacity, capturing it on
+        first use; the encoder's first P frame runs eagerly (it makes
+        the cuBLAS handle and the cached constant tables outside any
+        capture), as does an IDR. The frame's planes and its reference
+        are copied into the graphs' inputs, and the outputs are copied
+        out straight after the replay, on the same stream: the next
+        replay overwrites them, while the run's frames outlive it. So
+        all graphs can share one memory pool."""
+        if idr or fut is not None or not self._p_warm:
+            self._p_warm = self._p_warm or not idr
+            return encode_frame_row(y, u, v, ref, idr, qp, qp_c, cap, chunk,
+                                    stage=stage, sao=sao, tu_split=tu_split,
+                                    fut=fut)
+        with torch.cuda.device(self.device):
+            planes = (y, u, v, *ref)
+            graph, out = (self._graphs.get((qp, cap))
+                          or self._capture(planes, qp, qp_c, cap, chunk))
+            for dst, src in zip(self._graph_in, planes):
+                dst.copy_(src)
+            graph.replay()
+            self.graph_frames += 1
+            return {k: (tuple(t.clone() for t in o) if isinstance(o, tuple)
+                        else o.clone()) for k, o in out.items()}
+
+    def _capture(self, planes, qp: int, qp_c: int, cap: int, chunk: int):
+        """Capture encode_frame_row's P frame at (qp, cap) on the graphs'
+        inputs, made like `planes` on first use. capture_begin on a
+        stream of our own, not torch.cuda.graph, which synchronizes the
+        card and empties the device and pinned memory caches before each
+        capture."""
+        if self._graph_in is None:
+            self._graph_in = tuple(torch.empty_like(p) for p in planes)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        y, u, v, *ref = self._graph_in
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(self._side()):
+            graph.capture_begin(self._graph_pool,
+                                capture_error_mode="thread_local")
+            try:
+                out = encode_frame_row(y, u, v, tuple(ref), False, qp, qp_c,
+                                       cap, chunk, sao=self.sao,
+                                       tu_split=self.tu_split)
+            finally:
+                graph.capture_end()
+        self.graph_captures += 1
+        self._graphs[(qp, cap)] = graph, out
+        return graph, out
+
+    def _side(self) -> torch.cuda.Stream:
+        """The encoder's side stream on its card, made on first use."""
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+        return self._side_stream
+
+    def _to_host(self, t: torch.Tensor) -> np.ndarray:
+        """An output of a run whose rows have been read (so complete on
+        the device) as a host array. On a card the copy runs on the side
+        stream: on the launching stream it would wait for every run
+        launched after this one."""
+        if t.device.type != "cuda":
+            return t.numpy()
+        with torch.cuda.stream(self._side()):
+            return t.cpu().numpy()
 
     def _ref_or_blank(self) -> tuple:
         """The reference planes, or zero planes before the first IDR
@@ -460,11 +546,11 @@ class H265DeviceEncoder:
         idr, is_b = kind == "I", kind == "B"
 
         def extra(n):
-            return out["lv_rest"][0, :n].cpu().numpy()
+            return self._to_host(out["lv_rest"][0, :n])
 
         def dense():
             self.fallback_frames += 1
-            return {k: a.cpu().numpy().astype(np.int32)
+            return {k: self._to_host(a).astype(np.int32)
                     for k, a in zip(LEVEL_KEYS, out["dense_lv"])}
 
         def finish() -> EncodedFrame:

@@ -1690,19 +1690,20 @@ def encode_frame_row(y, u, v, ref, idr: bool, qp: int, qp_c: int,
 
 
 def _frame_run(planes, i: int, ref, idr: bool, qp: int, qp_c: int,
-               cap: int, chunk: int, sao: bool, tu_split: bool, fut=None):
+               cap: int, chunk: int, sao: bool, tu_split: bool, fut=None,
+               row=encode_frame_row):
     """The run(stage) of frame i of a run (run_frame): its planes
-    (stage "source"), then encode_frame_row."""
+    (stage "source"), then row (encode_frame_row)."""
     def run(stage=_untimed):
-        return encode_frame_row(*stage("source", lambda: planes(i)), ref,
-                                idr, qp, qp_c, cap, chunk, stage=stage,
-                                sao=sao, tu_split=tu_split, fut=fut)
+        return row(*stage("source", lambda: planes(i)), ref, idr, qp, qp_c,
+                   cap, chunk, stage=stage, sao=sao, tu_split=tu_split,
+                   fut=fut)
     return run
 
 
 def encode_run_rows(planes, idr_flags, qps, qpcs, ref, caps, chunks,
                     sao: bool = False, tu_split: bool = False,
-                    frame=run_frame) -> list[dict]:
+                    frame=run_frame, row=encode_frame_row) -> list[dict]:
     """Encode a run of frames on the device, in order, carrying the
     filtered reference from frame to frame.
 
@@ -1711,7 +1712,9 @@ def encode_run_rows(planes, idr_flags, qps, qpcs, ref, caps, chunks,
     f: idr_flags[f], qps[f], qpcs[f] and the sparse-level capacity
     caps[f] and chunk-0 size chunks[f] of its packed row; `sao` runs
     the SAO stage after each deblock, `tu_split` lets P frames take the
-    TU split; `frame` is the frame hook (run_frame). Returns
+    TU split; `frame` is the frame hook (run_frame); `row` codes each
+    frame's device work, called as encode_frame_row (the HEVC encoder
+    passes its CUDA graph replay of it, codec/h265/device.py). Returns
     encode_frame_row's dict per frame. Port of the JAX encode_run_rows
     and encode_idr_rows/_idr_tail."""
     outs = []
@@ -1720,7 +1723,7 @@ def encode_run_rows(planes, idr_flags, qps, qpcs, ref, caps, chunks,
         out = frame("I" if idr else "P",
                     _frame_run(planes, f, ref, idr, int(qps[f]),
                                int(qpcs[f]), caps[f], chunks[f], sao,
-                               tu_split),
+                               tu_split, row=row),
                     () if idr else (ref,))
         ref = out["recon"]
         outs.append(out)
